@@ -10,7 +10,7 @@ It exits 0 only if every phase passes; each fails hard on a miss:
    power limit;
 1. build the int8 kernels from csrc/ with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, at the
-   main-path shapes (B=4, n=1024, w=520), (4, 2048, 1032) and a ragged
+   exact-Abbe shapes (B=4, n=1024, w=520), (4, 2048, 1032) and a ragged
    (3, 96, 40), 3-limb and 2-limb: normalized RMS <= 1e-6 on dequantized Y
    and on the image; median kernel and plain times (CUDA events);
 3. the 64^2 demo through simulate(device='cuda'): <= 2e-3 normalized RMS
@@ -25,8 +25,39 @@ It exits 0 only if every phase passes; each fails hard on a miss:
    NumPy oracle (tests/numpy_oracle.py): <= 1e-6;
 6. every kernel's launch count from phases 3-5 is > 0.
 
+The SOCS (Hopkins) path, its launches counted apart from phases 3-5:
+
+7. each kernel against its plain version at the SOCS apply shapes, where
+   the contraction is the whole chirp (w = n): (4, 1024, 1024) and
+   (4, 2048, 2048), 3-limb and 2-limb, <= 1e-6; median times;
+8. the SOCS headline at 1024^2 (phase 4's mask and source, no
+   aberrations): simulate(solver='socs', socs_rank=256) cold (build +
+   apply), again on its cached kernels (apply) and with a new aberration
+   (build + apply, warm libraries), with the report; the
+   bench.py form (Nystrom, power_iters=1, rank 256, then socs_image) with
+   build and apply timed apart; the exact f32 matmul image over every
+   source point; the SOCS image within its reported socs_image_nrms_bound
+   and within 2e-4 of the exact one (both builds); the int8 and the f32
+   matmul applies each within 1e-6 of a complex128 apply of the same
+   kernels, and within 1e-5 of each other (the JAX package's bound for
+   that pair);
+9. simulate(solver='socs') with the automatic rank at 1024^2: chosen rank,
+   captured energy, bound (>= the measured error) and wall clock;
+10. 2048^2 SOCS at w = 2048 with phase 5's 8-point source: rank(TCC) <= 8,
+    so the rank-8 build is complete; the int8 image against phase 5's
+    complex128 oracle: <= 1e-5;
+11. the lean in-place build at 1024^2, rank 64: its image within 2e-4 of
+    the standard build's; the build times and memory peaks of both;
+12. every kernel's launch count from phases 8-11 is > 0.
+
+Run time on one H100 is about 2 minutes, most of it phase 4's int8 run,
+phase 5's host oracle and phase 8's exact image.
+
 The last stdout line is {"ok": true, "device": {...}}; the line before it
-lists each kernel with its launches, error and times.
+is nvidia-smi's name and power limit, and the one before that lists each
+kernel with its launches, error and times (launches on phases 3-5, and
+socs_launches on phases 8-11; ms at the exact-Abbe shape, socs_ms at
+(4, 1024, 1024)).
 """
 
 from __future__ import annotations
@@ -50,12 +81,18 @@ KERNELS = {
     "column_intensity": f"{TPU_KERNELS}:161 (column_intensity_int8)",
 }
 KERNEL_SHAPES = ((4, 1024, 520), (4, 2048, 1032), (3, 96, 40))
+SOCS_KERNEL_SHAPES = ((4, 1024, 1024), (4, 2048, 2048))
 TOL_KERNEL = 1e-6
 TOL_GOLDEN = 2e-3
 TOL_FFT = 1e-5
 TOL_MATMUL = 1e-6
 TOL_ORACLE = 1e-6
+TOL_SOCS_EXACT = 2e-4
+TOL_SOCS_PAIR = 1e-5  # int8 against matmul apply: tests/test_hopkins.py:164-172
+TOL_SOCS_ORACLE = 1e-5
+TOL_LEAN = 2e-4
 INT8_BUDGET_S = 120.0
+SOCS_RANK = 256
 
 
 def log(msg: str) -> None:
@@ -111,13 +148,13 @@ def dequant(limbs, scales) -> np.ndarray:
     return v.cpu().numpy()
 
 
-def phase_kernels(torch, ik) -> dict:
-    """Phase 2: each kernel against its plain version; returns the JSON
-    fields measured at the first (main-path) shape, 3-limb mode."""
-    rng = np.random.default_rng(0)
+def phase_kernels(torch, ik, phase: int, shapes) -> dict:
+    """Phases 2 and 7: each kernel against its plain version at ``shapes``;
+    returns the JSON fields measured at the first shape, 3-limb mode."""
+    rng = np.random.default_rng(phase)
     dev = torch.device("cuda")
     stats = {}
-    for batch, n, w in KERNEL_SHAPES:
+    for batch, n, w in shapes:
         x_np = (rng.normal(size=(batch, w, w))
                 + 1j * rng.normal(size=(batch, w, w))).astype(np.complex64)
         t0 = np.exp(1j * rng.normal(size=(n, w))).astype(np.complex64)
@@ -129,7 +166,7 @@ def phase_kernels(torch, ik) -> dict:
         x_limbs, x_scales = ik.quantize_x(x)
         for fast in (False, True):
             tag = f"B={batch} n={n} w={w} {'2-limb' if fast else '3-limb'}"
-            log(f"[phase 2] {tag}")
+            log(f"[phase {phase}] {tag}")
             # row_limb_gemm
             args = (x_limbs, x_scales, t_limbs, t_scales)
             yr_k, yi_k = ik.row_limb_gemm(*args, fast=fast)
@@ -242,8 +279,9 @@ def _padded(sp, chunk: int):
     return _pad_points(sp.shifts, sp.weights, chunk)
 
 
-def phase_oracle(torch, lt) -> None:
-    """Phase 5: 2048^2 sparse source, int8 engine vs complex128 oracle."""
+def phase_oracle(torch, lt):
+    """Phase 5: 2048^2 sparse source, int8 engine vs complex128 oracle.
+    Returns (mask, source map, oracle image) for phase 10."""
     from lithographysimulator_tpu_torch.ops.abbe import (abbe_image_points,
                                                          source_points)
 
@@ -274,6 +312,163 @@ def phase_oracle(torch, lt) -> None:
                         na=cfg.na)
     log(f"  complex128 oracle on the host: {time.perf_counter() - t0:.1f} s")
     check("2048^2 int8 vs float64 oracle", nrms(img, ref), TOL_ORACLE)
+    return mask, src, ref
+
+
+def _timed(torch, fn):
+    """(result, wall seconds) of ``fn()`` with the device synchronized on
+    both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _headline_setup(lt, n: int):
+    cfg = lt.OpticsConfig(pixel_number=n)
+    mask = lt.lines_and_spaces(cfg, line_width_px=n // 16, pitch_px=n // 8,
+                               device="cuda")
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    return cfg, mask, src
+
+
+def phase_socs_headline(torch, lt):
+    """Phase 8: the 1024^2 SOCS headline against the exact f32 image.
+    Returns the exact image for phase 9."""
+    from lithographysimulator_tpu_torch.ops.abbe import (abbe_image_points,
+                                                         source_points)
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    res, t_cold = _timed(torch, lambda: lt.simulate(
+        mask, src, solver="socs", socs_rank=SOCS_RANK, device="cuda"))
+    img = check_image(res.image, n)
+    warm, t_apply = _timed(torch, lambda: lt.simulate(
+        mask, src, solver="socs", socs_rank=SOCS_RANK, device="cuda"))
+    # new kernels (a 1e-3 nm defocus is another cache key), warm libraries
+    _, t_warm = _timed(torch, lambda: lt.simulate(
+        mask, src, [0, 0, 0, 0, 1e-3], solver="socs", socs_rank=SOCS_RANK,
+        device="cuda"))
+    log(f"[phase 8] 1024^2 SOCS rank {SOCS_RANK} via simulate(): "
+        f"cold (build + apply, first use of cuFFT/cuSOLVER) {t_cold:.3f} s, "
+        f"apply on cached kernels {t_apply:.3f} s, new kernels with warm "
+        f"libraries (build + apply) {t_warm:.3f} s")
+    log(f"  report: {json.dumps(res.report)}")
+    check("cached-kernel rerun vs cold run", nrms(check_image(warm.image, n), img),
+          TOL_MATMUL)
+
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device="cuda")
+    socs, t_build = _timed(torch, lambda: lt.randomized_socs(
+        pupil, src, cfg, rank=SOCS_RANK, power_iters=1, method="nystrom"))
+    bench, t_bench_apply = _timed(
+        torch, lambda: lt.socs_image(res.spectrum, socs, cfg))
+    bench = check_image(bench, n)
+    log(f"  bench.py form (Nystrom, power_iters=1): cold build {t_build:.3f} s, "
+        f"apply {t_bench_apply:.3f} s")
+
+    pts = source_points(src)
+    exact, t_exact = _timed(torch, lambda: abbe_image_points(
+        res.spectrum, res.pupil, *_padded(pts, 4), cfg, device="cuda",
+        engine="matmul"))
+    exact = check_image(exact, n)
+    log(f"  exact f32 matmul image, {pts.live_count} points: {t_exact:.3f} s")
+    bound = res.report["socs_image_nrms_bound"]
+    measured = nrms(img, exact)
+    check("SOCS (simulate) vs exact", measured, TOL_SOCS_EXACT)
+    check("SOCS (simulate) vs exact, against its reported bound", measured, bound)
+    check("SOCS (bench form) vs exact", nrms(bench, exact), TOL_SOCS_EXACT)
+    # Both float32-class applies against a complex128 apply of the same
+    # kernels; against each other they differ by the sum of two independent
+    # errors of that class, held to the JAX package's bound for the pair.
+    ref64 = _socs_image_f64(torch, res.spectrum, socs, cfg)
+    matmul = check_image(lt.socs_image(res.spectrum, socs, cfg, engine="matmul"), n)
+    check("SOCS int8 apply vs complex128 apply, same kernels", nrms(bench, ref64),
+          TOL_MATMUL)
+    check("SOCS matmul apply vs complex128 apply, same kernels",
+          nrms(matmul, ref64), TOL_MATMUL)
+    check("SOCS int8 apply vs matmul apply, same kernels", nrms(bench, matmul),
+          TOL_SOCS_PAIR)
+    return exact
+
+
+def _socs_image_f64(torch, spectrum, socs, cfg) -> np.ndarray:
+    """socs_image's zoom-DFT apply in complex128, post-processed in float64."""
+    from lithographysimulator_tpu_torch.ops.abbe import (_postprocess_gau23,
+                                                         _zoom_dft_kernel)
+
+    n = cfg.n
+    t = torch.as_tensor(_zoom_dft_kernel(n, cfg.wavelength_scaling().fft_size),
+                        dtype=torch.complex128, device=spectrum.device)
+    acc = torch.zeros((n, n), dtype=torch.float64, device=spectrum.device)
+    lams = socs.eigenvalues.double()
+    for c in range(0, socs.rank, 4):
+        fields = t @ (socs.kernels[c:c + 4] * spectrum).to(torch.complex128) @ t.T
+        acc += torch.sum(lams[c:c + 4, None, None] * fields.abs() ** 2, dim=0)
+    return check_image(_postprocess_gau23(acc, cfg), n)
+
+
+def phase_socs_auto(torch, lt, exact) -> None:
+    """Phase 9: simulate(solver='socs') with the automatic rank at 1024^2."""
+    cfg, mask, src = _headline_setup(lt, 1024)
+    res, t = _timed(torch, lambda: lt.simulate(mask, src, solver="socs",
+                                                device="cuda"))
+    img = check_image(res.image, cfg.n)
+    rep = res.report
+    log(f"[phase 9] 1024^2 SOCS auto rank: rank {rep['socs_rank']}, energy "
+        f"{rep['socs_energy_captured']}, bound {rep['socs_image_nrms_bound']:.3e}, "
+        f"{t:.3f} s (builds + apply)")
+    check("SOCS (auto rank) vs exact, against its reported bound",
+          nrms(img, exact), rep["socs_image_nrms_bound"])
+
+
+def phase_socs_2048(torch, lt, mask, src, oracle_img) -> None:
+    """Phase 10: 2048^2 SOCS at w = 2048 against the complex128 oracle."""
+    res, t = _timed(torch, lambda: lt.simulate(mask, src, solver="socs",
+                                                socs_rank=8, device="cuda"))
+    img = check_image(res.image, mask.config.n)
+    log(f"[phase 10] 2048^2 SOCS rank 8 (8 source points) via simulate(): "
+        f"{t:.3f} s, energy {res.report['socs_energy_captured']}")
+    check("2048^2 SOCS int8 vs float64 oracle", nrms(img, oracle_img),
+          TOL_SOCS_ORACLE)
+
+
+def phase_socs_lean(torch, lt) -> None:
+    """Phase 11: the lean in-place build against the standard build."""
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device="cuda")
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    peaks = {}
+
+    def build(lean: bool):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        socs, t = _timed(torch, lambda: lt.randomized_socs(
+            pupil, src, cfg, rank=64, lean=lean))
+        peaks[lean] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return socs, t
+
+    lean, t_lean = build(True)
+    std, t_std = build(False)
+    log(f"[phase 11] 1024^2 rank 64: lean build {t_lean:.3f} s, peak "
+        f"{peaks[True]:.3f} GB; standard build {t_std:.3f} s, peak "
+        f"{peaks[False]:.3f} GB (probe block {80 * n * n * 8 / 1e9:.3f} GB)")
+    check("lean vs standard build image",
+          nrms(check_image(lt.socs_image(spectrum, lean, cfg), cfg.n),
+               check_image(lt.socs_image(spectrum, std, cfg), cfg.n)),
+          TOL_LEAN)
+
+
+def _launched(ik, phases: str) -> dict:
+    launches = dict(ik.LAUNCHES)
+    log(f"  launches in phases {phases}: {launches}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in phases {phases}: "
+                             f"{missing}")
+    return launches
 
 
 def main() -> int:
@@ -303,21 +498,31 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     build.load_library()
 
-    stats = phase_kernels(torch, ik)
+    stats = phase_kernels(torch, ik, 2, KERNEL_SHAPES)
 
-    ik.reset_launch_counts()  # count only the main path's launches below
+    ik.reset_launch_counts()  # count only the exact-Abbe path's launches below
     phase_demo(torch, lt)
     phase_headline(torch, lt)
-    phase_oracle(torch, lt)
-    launches = dict(ik.LAUNCHES)
-    log(f"[phase 6] launches in phases 3-5: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    mask_2048, src_2048, oracle_2048 = phase_oracle(torch, lt)
+    log("[phase 6]")
+    launches = _launched(ik, "3-5")
+
+    socs_stats = phase_kernels(torch, ik, 7, SOCS_KERNEL_SHAPES)
+
+    ik.reset_launch_counts()  # count only the SOCS path's launches below
+    exact_1024 = phase_socs_headline(torch, lt)
+    phase_socs_auto(torch, lt, exact_1024)
+    phase_socs_2048(torch, lt, mask_2048, src_2048, oracle_2048)
+    phase_socs_lean(torch, lt)
+    log("[phase 12]")
+    socs_launches = _launched(ik, "8-11")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
-         "launches": launches[k], **stats[k]} for k in KERNELS]}))
+         "launches": launches[k], **stats[k],
+         "socs_launches": socs_launches[k],
+         **{f"socs_{key}": v for key, v in socs_stats[k].items()}}
+        for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

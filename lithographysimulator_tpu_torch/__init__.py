@@ -1,9 +1,10 @@
-"""PyTorch/CUDA port of lithographysimulator_tpu: the exact-Abbe slice.
+"""PyTorch/CUDA port of lithographysimulator_tpu: the scalar imaging slice.
 
-Scalar, monochromatic, thin-mask aerial imaging with the Gau'23 and direct
-solvers, on a CUDA device through hand-written int8 limb kernels
-(``csrc/intensity_int8.cu``) or on the CPU through their plain PyTorch
-versions. Every entry point takes an explicit ``device``.
+Scalar, monochromatic, thin-mask aerial imaging with the exact Abbe solvers
+(Gau'23 and direct) and the SOCS (Hopkins) fast path, on a CUDA device
+through hand-written int8 limb kernels (``csrc/intensity_int8.cu``) or on
+the CPU through their plain PyTorch versions. Every entry point takes an
+explicit ``device``.
 
 Importing the package turns TF32 off for float32 matmuls and cuDNN: TF32
 keeps ~3 decimal digits, far below the fp32 accuracy class the engines
@@ -23,8 +24,12 @@ from .models.pupil import Pupil, pupil_function
 from .models.source import LightSource
 from .ops.abbe import SourcePoints, abbe_image, abbe_image_points, source_points
 from .ops.fraunhofer import mask_spectrum, spectrum_direct, spectrum_fft
+from .ops.hopkins import (SOCSKernels, auto_rank_socs, randomized_socs,
+                          socs_energy_captured, socs_image,
+                          socs_image_nrms_bound, tcc_eigensystem,
+                          tcc_total_trace)
 from .ops.zernike import osa_index_to_mn, wavefront_error, zernike_basis
-from .simulate import SimulationResult, simulate
+from .simulate import SimulationResult, simulate, simulate_batch
 
 __version__ = "0.1.0"
 
@@ -36,6 +41,7 @@ __all__ = [
     "Mask",
     "OpticsConfig",
     "Pupil",
+    "SOCSKernels",
     "SimulationResult",
     "SourcePoints",
     "WavelengthScaling",
@@ -43,6 +49,7 @@ __all__ = [
     "abbe_image_points",
     "alternating_psm",
     "attenuated_psm",
+    "auto_rank_socs",
     "contact_holes",
     "demo_bars",
     "from_array",
@@ -50,10 +57,17 @@ __all__ = [
     "mask_spectrum",
     "osa_index_to_mn",
     "pupil_function",
+    "randomized_socs",
     "simulate",
+    "simulate_batch",
+    "socs_energy_captured",
+    "socs_image",
+    "socs_image_nrms_bound",
     "source_points",
     "spectrum_direct",
     "spectrum_fft",
+    "tcc_eigensystem",
+    "tcc_total_trace",
     "wavefront_error",
     "zernike_basis",
 ]

@@ -1,17 +1,22 @@
-"""Command-line interface of the port: the ``simulate`` subcommand.
+"""Command-line interface of the port: the ``simulate`` and ``socs``
+subcommands.
 
-Same flags as ``python -m lithographysimulator_tpu simulate`` for the masks,
-sources and solvers this port has, plus ``--device``:
+Same flags as ``python -m lithographysimulator_tpu simulate`` / ``socs`` for
+the masks, sources and solvers this port has (scalar imaging), plus
+``--device`` and, for ``simulate``, ``--socs-rank``:
 
     python -m lithographysimulator_tpu_torch simulate --device cuda \
         --pixel-number 512 --source quasar --sigma-in 0.4 --sigma-out 0.8 \
         --aberrations 0 0 0.01 0 100 --out aerial.npy
+    python -m lithographysimulator_tpu_torch socs --device cuda \
+        --pixel-number 1024 --rank 256 --power-iters 1 --out kernels.npz
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -82,9 +87,10 @@ def cmd_simulate(args) -> int:
     config = _build_config(args)
     mask = _build_mask(args, config)
     source = _build_source(args, config)
+    rank = args.socs_rank if args.socs_rank == "auto" else int(args.socs_rank)
     result = simulate(mask, source, _aberrations(args), device=args.device,
                       solver=args.solver, chunk=args.chunk,
-                      normalize=args.normalize)
+                      normalize=args.normalize, socs_rank=rank)
     print(json.dumps(result.report, default=repr))
     if args.out:
         out = Path(args.out)
@@ -96,10 +102,41 @@ def cmd_simulate(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(prog="lithographysimulator_tpu_torch")
-    sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("simulate", help="compute an aerial image")
+def cmd_socs(args) -> int:
+    """Build a scalar SOCS kernel set, print the JAX CLI's JSON keys and
+    optionally save it (``.npz``, loadable by either package)."""
+    import torch
+
+    from .models.pupil import pupil_function
+    from .ops.hopkins import randomized_socs, socs_energy_captured
+    from .utils.artifacts import save_socs
+
+    config = _build_config(args)
+    source = _build_source(args, config)
+    device = torch.device(args.device)
+    aberr = _aberrations(args) or [0.0]
+    lean = {"auto": "auto", "on": True, "off": False}[args.lean]
+    t0 = time.perf_counter()
+    pupil = pupil_function(aberr, config, device=device)
+    socs = randomized_socs(pupil, source, config, rank=args.rank,
+                           power_iters=args.power_iters, lean=lean)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    elapsed = time.perf_counter() - t0
+    ev = socs.eigenvalues.cpu().numpy()
+    print(json.dumps({
+        "rank": int(socs.rank), "build_s": round(elapsed, 3),
+        "eig_max": float(ev[0]), "eig_min_kept": float(ev[-1]),
+        "energy_captured": round(socs_energy_captured(socs, pupil, source), 6),
+        "channels": None,
+    }))
+    if args.out:
+        save_socs(args.out, socs)
+        print(f"wrote {args.out}")
+    return 0
+
+
+def _add_common(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on ('cuda', 'cuda:1', 'cpu')")
     p.add_argument("--pixel-number", type=int, default=64)
@@ -125,10 +162,30 @@ def main(argv=None) -> int:
                         "(OSA entry 4 / Noll term 4 is defocus in nm)")
     p.add_argument("--zernike-indexing", default="osa",
                    choices=["osa", "noll", "fringe"])
-    p.add_argument("--solver", default="gau23", choices=["gau23", "direct"])
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="lithographysimulator_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("simulate", help="compute an aerial image")
+    _add_common(p)
+    p.add_argument("--solver", default="gau23",
+                   choices=["gau23", "direct", "socs"])
+    p.add_argument("--socs-rank", default="auto",
+                   help="SOCS rank: an int, or 'auto' (99.9%% captured energy)")
     p.add_argument("--chunk", type=int, default=4)
     p.add_argument("--normalize", action="store_true")
     p.add_argument("--out", default=None, help="output .npy path")
     p.set_defaults(func=cmd_simulate)
+
+    p = sub.add_parser("socs", help="build (and save) SOCS kernels")
+    _add_common(p)
+    p.add_argument("--rank", type=int, default=64)
+    p.add_argument("--power-iters", type=int, default=2)
+    p.add_argument("--lean", default="auto", choices=["auto", "on", "off"],
+                   help="single-buffer in-place build (a lower memory "
+                        "peak than the standard build)")
+    p.add_argument("--out", default=None, help="output .npz path")
+    p.set_defaults(func=cmd_socs)
     args = parser.parse_args(argv)
     return args.func(args)

@@ -1,10 +1,11 @@
 """Carry the JAX package's imaging state over to the port.
 
 This system has no weights: an optics config, a mask, a source map and an
-aberration vector are its parameters. Source maps and aberration vectors
-cross as numpy arrays (``np.asarray(x)`` of either package's value), which
-every port entry point takes; the config and the mask need the two helpers
-here. Nothing here imports jax.
+aberration vector are its parameters, and a SOCS kernel set is the state a
+build leaves. Source maps and aberration vectors cross as numpy arrays
+(``np.asarray(x)`` of either package's value), which every port entry point
+takes; the config, the mask and a kernel set need the helpers here.
+Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -13,8 +14,11 @@ import dataclasses
 
 import numpy as np
 
+import torch
+
 from .config import OpticsConfig
 from .models.mask import Mask, from_array
+from .ops.hopkins import SOCSKernels
 
 
 def config_from_jax(cfg) -> OpticsConfig:
@@ -30,3 +34,14 @@ def mask_from_numpy(geometry, config, *, device) -> Mask:
     return from_array(np.asarray(geometry), config_from_jax(config),
                       device=device)
 
+
+def socs_from_numpy(kernels, eigenvalues, total_rank: int = -1, *,
+                    device) -> SOCSKernels:
+    """A port :class:`SOCSKernels` on ``device`` from host arrays, e.g. a
+    JAX ``SOCSKernels`` read back as ``np.asarray(socs.kernels)``,
+    ``np.asarray(socs.eigenvalues)`` and ``socs.total_rank``."""
+    return SOCSKernels(
+        kernels=torch.as_tensor(np.array(kernels, np.complex64), device=device),
+        eigenvalues=torch.as_tensor(np.array(eigenvalues, np.float32),
+                                    device=device),
+        total_rank=int(total_rank))

@@ -182,10 +182,12 @@ def test_engine_policy_and_slice_limits():
         pa.resolve_engine("warp9", device="cpu")
     mask = pt.demo_bars(pt.OpticsConfig(pixel_number=32), device="cpu")
     src = pt.LightSource(mask.config).classical()
-    for kw in (dict(solver="socs"), dict(polarization="x"), dict(chromatic=1),
-               dict(mask3d=1), dict(perturb=1)):
+    for kw in (dict(polarization="x"), dict(chromatic=1), dict(mask3d=1),
+               dict(perturb=1), dict(solver="socs", polarization="x")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             pt.simulate(mask, src, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown solver"):
+        pt.simulate(mask, src, device="cpu", solver="hopkins")
     with pytest.raises(TypeError):
         pt.simulate(mask, src)  # no default device
 
@@ -229,6 +231,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, lithographysimulator_tpu_torch, "
             "lithographysimulator_tpu_torch.cli, "
             "lithographysimulator_tpu_torch.interop, "
+            "lithographysimulator_tpu_torch.ops.hopkins, "
+            "lithographysimulator_tpu_torch.utils.artifacts, "
             "lithographysimulator_tpu_torch.ops.kernels.build; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lithographysimulator_tpu')))")

@@ -82,3 +82,28 @@ def test_int8_engine_end_to_end():
     fft = abbe.abbe_image(res.spectrum, res.pupil, src, cfg, device="cuda",
                           engine="fft")
     assert _nrms(res.image.cpu(), fft.cpu()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_socs_path_end_to_end():
+    """simulate(solver='socs') on the card builds on the device, applies
+    through the int8 kernels and agrees with the f32 matmul apply of the
+    same kernels (the JAX package's own bound for this pair,
+    test_hopkins.py:164-172)."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    _cuda()
+    cfg = lt.OpticsConfig(pixel_number=128)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    ik.reset_launch_counts()
+    res = lt.simulate(lt.demo_bars(cfg, device="cuda"), src, [0, 0, 0.01, 0, 50],
+                      device="cuda", solver="socs", socs_rank=16)
+    assert min(ik.LAUNCHES.values()) > 0
+    assert res.image.device.type == "cuda" and res.report["socs_rank"] == 16
+    socs = lt.randomized_socs(res.pupil, src, cfg, rank=16)
+    assert socs.kernels.device.type == "cuda"
+    int8 = lt.socs_image(res.spectrum, socs, cfg)
+    matmul = lt.socs_image(res.spectrum, socs, cfg, engine="matmul")
+    assert _nrms(int8.cpu(), matmul.cpu()) < 1e-5
+    assert _nrms(res.image.cpu(), int8.cpu()) < 1e-6

@@ -1,0 +1,293 @@
+"""Port parity: the SOCS apply and its accounting in the torch port
+(device='cpu') against the JAX package on the same numpy inputs.
+
+Kernel sets cross between the packages through ``interop.socs_from_numpy``,
+so both apply the SAME kernels. Tolerances:
+
+* ``socs_image`` with the fft, matmul and int8 engines and the direct
+  solver: <= 1e-6 nRMS against JAX; ``int8_fast`` at the JAX test's own
+  bound (1e-4 against the f32 engine, test_pallas_kernel.py:244);
+* ``tcc_total_trace``, ``socs_energy_captured``, ``_tcc_diag_weighted_m2``
+  and ``_kept_tail_mean``: float32 rounding (1e-6 relative);
+* ``socs_image_nrms_bound`` where fft_size <= 2n: 1e-5 relative to JAX.
+  Where fft_size > 2n the port reports the sup bound on purpose (ROADMAP.md
+  Queue 3, R1), and the test holds it to bound >= measured;
+* ``auto_rank_socs``: the rank JAX chooses, the JAX tests' energy and
+  tolerance criteria (test_hopkins.py:269-277, test_socs_bound.py:136-166).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+import lithographysimulator_tpu as jt
+from lithographysimulator_tpu.ops import hopkins as jh
+from lithographysimulator_tpu_torch.interop import config_from_jax, socs_from_numpy
+from lithographysimulator_tpu_torch.ops import hopkins as ph
+
+from .conftest import normalized_rms
+
+CFG = jt.OpticsConfig(pixel_number=32)
+PCFG = config_from_jax(CFG)
+ABERR = np.array([0, 0, 0.05, 0.03, 30, 0.02, 0, 0.04], np.float32)
+DEMO_ABERR = np.array([0, 0, 0.01, 0, 100, 0.01, 0, 0.01, 0.01, 0.01], np.float32)
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def _rel(a, b):
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def _carry(js):
+    return socs_from_numpy(np.asarray(js.kernels), np.asarray(js.eigenvalues),
+                           js.total_rank, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """32^2, off-axis annular source, odd aberrations (test_hopkins.py),
+    and one dense JAX kernel set carried into the port."""
+    spec = np.asarray(jt.spectrum_fft(jt.demo_bars(CFG).geometry, CFG))
+    pup = np.asarray(jt.pupil_function(ABERR, CFG))
+    src = np.asarray(jt.LightSource(CFG, sigma_in=0.2, sigma_out=0.6,
+                                    shift_x=0.1).annular())
+    js = jh.tcc_eigensystem(jnp.asarray(pup), src, CFG, rank=24)
+    return spec, pup, src, js, _carry(js)
+
+
+@pytest.fixture(scope="module")
+def demo():
+    """The 64^2 demo of test_socs_bound.py (fft_size 128 = 2n) with its
+    exact JAX image."""
+    cfg = jt.OpticsConfig(pixel_number=64)
+    mask = jt.demo_bars(cfg)
+    src = np.asarray(jt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8)
+                     .quasar(4, -np.pi / 8))
+    pup = np.asarray(jt.pupil_function(DEMO_ABERR, cfg))
+    spec = np.asarray(jt.mask_spectrum(mask.geometry, cfg))
+    exact = np.asarray(jt.simulate(mask, src, DEMO_ABERR, solver="gau23").image)
+    return cfg, src, pup, spec, exact
+
+
+# --- socs_image on one kernel set --------------------------------------------
+
+def test_socs_from_numpy_carries_the_kernel_set(setup):
+    _, _, _, js, ps = setup
+    assert ps.rank == js.rank == 24 and ps.total_rank == js.total_rank
+    assert ps.kernels.dtype == torch.complex64 and ps.eigenvalues.dtype == torch.float32
+    np.testing.assert_array_equal(_np(ps.kernels), np.asarray(js.kernels))
+
+
+@pytest.mark.parametrize("engine", ["fft", "matmul", "int8"])
+def test_socs_image_engines_match_jax(setup, engine):
+    spec, _, _, js, ps = setup
+    ref = np.asarray(jh.socs_image(jnp.asarray(spec), js, CFG, engine=engine))
+    ours = _np(ph.socs_image(_t(spec), ps, PCFG, engine=engine))
+    assert normalized_rms(ours, ref) < 1e-6
+
+
+def test_socs_image_int8_ragged_chunk_matches_jax(setup):
+    """rank 10 with chunk 4: the last chunk holds 2 kernels."""
+    spec, _, _, js, _ = setup
+    js10 = jh.SOCSKernels(kernels=js.kernels[:10], eigenvalues=js.eigenvalues[:10],
+                          total_rank=js.total_rank)
+    ref = np.asarray(jh.socs_image(jnp.asarray(spec), js10, CFG, engine="int8"))
+    ours = _np(ph.socs_image(_t(spec), _carry(js10), PCFG, engine="int8", chunk=4))
+    assert normalized_rms(ours, ref) < 1e-6
+
+
+def test_socs_image_int8_fast_class(setup):
+    spec, _, _, js, ps = setup
+    f32 = _np(ph.socs_image(_t(spec), ps, PCFG, engine="matmul"))
+    fast = _np(ph.socs_image(_t(spec), ps, PCFG, engine="int8_fast"))
+    ref = np.asarray(jh.socs_image(jnp.asarray(spec), js, CFG, engine="int8_fast"))
+    assert normalized_rms(fast, f32) < 1e-4
+    assert normalized_rms(fast, ref) < 1e-4
+
+
+def test_socs_image_direct_solver_matches_jax(setup):
+    _, _, _, js, ps = setup
+    spec_d = np.asarray(jt.spectrum_direct(jt.demo_bars(CFG).geometry, CFG))
+    ref = np.asarray(jh.socs_image(jnp.asarray(spec_d), js, CFG, solver="direct"))
+    ours = _np(ph.socs_image(_t(spec_d), ps, PCFG, solver="direct"))
+    assert normalized_rms(ours, ref) < 1e-6
+
+
+def test_socs_image_engine_rules():
+    """An explicit int8 engine raises off its path (direct solver, or
+    fft_size < n); the masked chirp of fft_size < n still matches JAX on the
+    fft and matmul engines."""
+    cfg = jt.OpticsConfig(pixel_number=32, pixel_size=100.0)
+    pcfg = config_from_jax(cfg)
+    assert cfg.wavelength_scaling().fft_size < cfg.n
+    pup = np.asarray(jt.pupil_function(ABERR, cfg))
+    src = np.asarray(jt.LightSource(cfg, sigma_in=0.3, sigma_out=0.7).annular())
+    spec = np.asarray(jt.spectrum_fft(jt.demo_bars(cfg).geometry, cfg))
+    js = jh.tcc_eigensystem(jnp.asarray(pup), src, cfg, rank=8)
+    ps = _carry(js)
+    for engine in ("int8", "int8_fast"):
+        with pytest.raises(ValueError, match="fft_size >= n"):
+            ph.socs_image(_t(spec), ps, pcfg, engine=engine)
+        with pytest.raises(ValueError, match="solver='gau23'"):
+            ph.socs_image(_t(spec), ps, PCFG, engine=engine, solver="direct")
+    for engine in ("fft", "matmul"):
+        ref = np.asarray(jh.socs_image(jnp.asarray(spec), js, cfg, engine=engine))
+        ours = _np(ph.socs_image(_t(spec), ps, pcfg, engine=engine))
+        assert normalized_rms(ours, ref) < 1e-6
+    with pytest.raises(ValueError, match="unknown socs solver"):
+        ph.socs_image(_t(spec), ps, pcfg, solver="hopkins")
+
+
+# --- accounting ---------------------------------------------------------------
+
+def test_trace_and_energy_match_jax(setup):
+    _, pup, src, js, ps = setup
+    assert _rel(ph.tcc_total_trace(_t(pup), src),
+                jh.tcc_total_trace(jnp.asarray(pup), src)) < 1e-6
+    ours = ph.socs_energy_captured(ps, _t(pup), src)
+    assert _rel(ours, jh.socs_energy_captured(js, jnp.asarray(pup), src)) < 1e-6
+    assert 0.0 < ours <= 1.0
+
+
+def test_tail_means_match_jax(setup):
+    spec, pup, src, js, ps = setup
+    ours = ph._tcc_diag_weighted_m2(_t(pup), src, _t(spec))
+    ref = float(jh._tcc_diag_weighted_m2(jnp.asarray(pup), jnp.asarray(src),
+                                         jnp.asarray(spec)))
+    assert _rel(ours, ref) < 1e-6
+    kept = ph._kept_tail_mean(ps.kernels, ps.eigenvalues, _t(spec), chunk=5)
+    assert _rel(kept, float(jh._kept_tail_mean(js.kernels, js.eigenvalues,
+                                               jnp.asarray(spec)))) < 1e-6
+    assert kept < ours  # the kept kernels carry part of the exact mean
+
+
+def test_tcc_diag_alignment_against_rolled_pupils(setup):
+    """The ifftshift alignment of the diag-TCC convolution, pinned against
+    the brute-force rolled-pupil sum with a non-uniform |M|^2
+    (test_socs_bound.py:105-133)."""
+    _, pup, src, _, _ = setup
+    p2 = np.abs(pup) ** 2
+    pts = ph.source_points(src)
+    diag = np.zeros_like(p2, dtype=np.float64)
+    for (dy, dx), w in zip(pts.shifts, pts.weights):
+        diag += w * np.roll(np.roll(p2, int(dy), 0), int(dx), 1)
+    rng = np.random.default_rng(0)
+    m = rng.standard_normal(p2.shape) + 1j * rng.standard_normal(p2.shape)
+    expect = float((np.abs(m) ** 2 * diag).sum())
+    got = ph._tcc_diag_weighted_m2(_t(pup), src, _t(m.astype(np.complex64)))
+    assert _rel(got, expect) < 1e-5
+
+
+def test_nrms_bound_matches_jax_where_fft_size_le_2n(demo):
+    """Same kernels in both packages: the sup bound (trace only) and the
+    tail-mean refinement agree with JAX where fft_size <= 2n."""
+    cfg, src, pup, spec, _ = demo
+    pcfg = config_from_jax(cfg)
+    assert cfg.wavelength_scaling().fft_size <= 2 * cfg.n
+    js = jh.tcc_eigensystem(jnp.asarray(pup), src, cfg, rank=8)
+    ps = _carry(js)
+    img = np.asarray(jh.socs_image(jnp.asarray(spec), js, cfg))
+    trace = jh.tcc_total_trace(jnp.asarray(pup), src)
+    assert _rel(ph.socs_image_nrms_bound(ps, _t(spec), _t(img), trace=trace),
+                jh.socs_image_nrms_bound(js, jnp.asarray(spec), jnp.asarray(img),
+                                         trace=trace)) < 1e-5
+    ref = jh.socs_image_nrms_bound(js, jnp.asarray(spec), jnp.asarray(img),
+                                   pupil=jnp.asarray(pup), source_map=src)
+    ours = ph.socs_image_nrms_bound(ps, _t(spec), _t(img), pupil=_t(pup),
+                                    source_map=src, config=pcfg)
+    assert _rel(ours, ref) < 1e-5
+    # normalized image + its total weight: the same bound
+    w = float(src.sum())
+    assert _rel(ph.socs_image_nrms_bound(ps, _t(spec), _t(img / w), pupil=_t(pup),
+                                         source_map=src, config=pcfg,
+                                         total_weight=w), ours) < 1e-5
+    with pytest.raises(ValueError, match="config"):
+        ph.socs_image_nrms_bound(ps, _t(spec), _t(img), pupil=_t(pup), source_map=src)
+    with pytest.raises(ValueError, match="trace"):
+        ph.socs_image_nrms_bound(ps, _t(spec), _t(img))
+
+
+def test_nrms_bound_holds_past_fft_size_2n():
+    """R1: at pixel_size 2.5 nm (fft_size 1024 = 16n) the image is a small
+    crop of the fft grid and the tail-mean factor 4 no longer holds; JAX
+    reports 2.7e-2 against 6.1e-2 measured at exact rank 2. The port's
+    bound must dominate the measured error there."""
+    cfg = jt.OpticsConfig(pixel_number=64, pixel_size=2.5)
+    pcfg = config_from_jax(cfg)
+    assert cfg.wavelength_scaling().fft_size > 2 * cfg.n
+    mask = jt.demo_bars(cfg)
+    src = np.asarray(jt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8)
+                     .quasar(4, -np.pi / 8))
+    exact = np.asarray(jt.simulate(mask, src, DEMO_ABERR, solver="gau23").image)
+    pup = np.asarray(jt.pupil_function(DEMO_ABERR, cfg))
+    spec = np.asarray(jt.mask_spectrum(mask.geometry, cfg))
+    socs = ph.tcc_eigensystem(_t(pup), src, pcfg, rank=2)
+    img = ph.socs_image(_t(spec), socs, pcfg)
+    bound = ph.socs_image_nrms_bound(socs, _t(spec), img, pupil=_t(pup),
+                                     source_map=src, config=pcfg)
+    measured = normalized_rms(_np(img), exact)
+    assert measured > 5e-2  # the configuration that broke the JAX bound
+    assert bound >= measured
+
+
+def test_nrms_bound_dominates_exact_and_randomized(demo):
+    """Dense kernels: the bound is a theorem and shrinks with rank
+    (test_socs_bound.py:49-85); randomized kernels: it holds in practice."""
+    cfg, src, pup, spec, exact = demo
+    pcfg = config_from_jax(cfg)
+    trace = ph.tcc_total_trace(_t(pup), src)
+    prev = np.inf
+    for rank in (4, 8, 16, 32):
+        socs = ph.tcc_eigensystem(_t(pup), src, pcfg, rank=rank)
+        img = ph.socs_image(_t(spec), socs, pcfg)
+        bound = ph.socs_image_nrms_bound(socs, _t(spec), img, trace=trace)
+        assert bound >= normalized_rms(_np(img), exact), rank
+        assert bound <= prev + 1e-12
+        prev = bound
+    for rank in (8, 16, 32):
+        socs = ph.randomized_socs(_t(pup), src, pcfg, rank=rank)
+        img = ph.socs_image(_t(spec), socs, pcfg)
+        bound = ph.socs_image_nrms_bound(socs, _t(spec), img, pupil=_t(pup),
+                                         source_map=src, config=pcfg)
+        assert bound >= normalized_rms(_np(img), exact), rank
+
+
+# --- automatic rank -----------------------------------------------------------
+
+def test_auto_rank_energy_matches_jax(setup):
+    _, pup, src, _, _ = setup
+    kw = dict(energy_target=0.995, start_rank=16, max_rank=128)
+    ref = jh.auto_rank_socs(jnp.asarray(pup), src, CFG, **kw)
+    ours = ph.auto_rank_socs(_t(pup), src, PCFG, **kw)
+    assert ours.rank == ref.rank <= 128
+    assert ph.socs_energy_captured(ours, _t(pup), src) >= 0.995
+
+
+def test_auto_rank_tolerance(demo):
+    """The smallest doubling-step rank whose bound meets the budget
+    (test_socs_bound.py:136-157); a 100x tighter budget needs more."""
+    cfg, src, pup, spec, exact = demo
+    pcfg = config_from_jax(cfg)
+    tol = 1e-2
+    socs = ph.randomized_socs(_t(pup), src, pcfg, rank="auto", tolerance=tol,
+                              spectrum=_t(spec))
+    img = ph.socs_image(_t(spec), socs, pcfg)
+    bound = ph.socs_image_nrms_bound(socs, _t(spec), img, pupil=_t(pup),
+                                     source_map=src, config=pcfg)
+    assert bound <= tol
+    assert normalized_rms(_np(img), exact) <= bound
+    tight = ph.auto_rank_socs(_t(pup), src, pcfg, tolerance=tol * 1e-2,
+                              spectrum=_t(spec), max_rank=128)
+    assert tight.rank > socs.rank
+    with pytest.raises(ValueError, match="spectrum"):
+        ph.auto_rank_socs(_t(pup), src, pcfg, tolerance=tol)
