@@ -8,11 +8,17 @@ It exits 0 only if every phase passes; each fails hard on a miss:
 
 0. device: name, capability, torch/CUDA versions, nvidia-smi name and
    power limit;
-1. build the int8 kernels from csrc/ with nvcc for sm_90a;
+1. build the int8 kernels from csrc/ with nvcc for sm_90a; print ptxas's
+   registers and spills and, from cuobjdump -sass, each kernel's count of
+   tensor-core integer MMA (IGMMA for wgmma, IMMA for mma.sync) and of
+   IDP.4A (__dp4a). Fails if row_limb_gemm or column_intensity has no
+   tensor-core MMA, any IDP.4A, or spills;
 2. each kernel against its plain PyTorch version on the card, at the
-   exact-Abbe shapes (B=4, n=1024, w=520), (4, 2048, 1032) and a ragged
-   (3, 96, 40), 3-limb and 2-limb: normalized RMS <= 1e-6 on dequantized Y
-   and on the image; median kernel and plain times (CUDA events);
+   exact-Abbe shapes (B=4, n=1024, w=520), (4, 2048, 1032), a ragged
+   (3, 96, 40) and (2, 328, 264), which the 64 x 64 tiles and 64-byte K
+   stages do not divide, 3-limb and 2-limb: normalized RMS <= 1e-6 on
+   dequantized Y and on the image; median kernel, plain and library times
+   (CUDA events) beside the kernel's bound and its share of the bound;
 3. the 64^2 demo through simulate(device='cuda'): <= 2e-3 normalized RMS
    against tests/golden/demo_aerial_image_fft.npy and <= 1e-5 against the
    port's own fft engine on the card;
@@ -29,13 +35,15 @@ The SOCS (Hopkins) path, its launches counted apart from phases 3-5:
 
 7. each kernel against its plain version at the SOCS apply shapes, where
    the contraction is the whole chirp (w = n): (4, 1024, 1024) and
-   (4, 2048, 2048), 3-limb and 2-limb, <= 1e-6; median times;
+   (4, 2048, 2048), and the ragged (2, 328, 264), 3-limb and 2-limb,
+   <= 1e-6; times as in phase 2;
 8. the SOCS headline at 1024^2 (phase 4's mask and source, no
    aberrations): simulate(solver='socs', socs_rank=256) cold (build +
    apply), again on its cached kernels (apply) and with a new aberration
    (build + apply, warm libraries), with the report; the
    bench.py form (Nystrom, power_iters=1, rank 256, then socs_image) with
-   build and apply timed apart; the exact f32 matmul image over every
+   build and apply timed apart, and the warm apply on the int8, matmul and
+   fft engines; the exact f32 matmul image over every
    source point; the SOCS image within its reported socs_image_nrms_bound
    and within 2e-4 of the exact one (both builds); the int8 and the f32
    matmul applies each within 1e-6 of a complex128 apply of the same
@@ -53,16 +61,27 @@ The SOCS (Hopkins) path, its launches counted apart from phases 3-5:
 Run time on one H100 is about 2 minutes, most of it phase 4's int8 run,
 phase 5's host oracle and phase 8's exact image.
 
+Kernel times are medians of 5 CUDA-event samples of 10 back-to-back calls
+each, after a warm-up (time_ms). library_ms is
+one PyTorch call of the same contraction, in complex64 with TF32 off:
+torch.matmul(T0, X) for row_limb_gemm and torch.matmul(Y, T0^T) for
+column_intensity (without the |E|^2 sum); none for row_requantize.
+bound_ms is the least time the card could take: the larger of the int8
+tensor-core operations (3 planes x 6 limb dots x 2*M*N*K, 3 dots 2-limb)
+over 1,979 TOP/s and the bytes read and written once over 3.35 TB/s.
+
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is nvidia-smi's name and power limit, and the one before that lists each
-kernel with its launches, error and times (launches on phases 3-5, and
-socs_launches on phases 8-11; ms at the exact-Abbe shape, socs_ms at
+kernel with its launches, error, times and bound (launches on phases 3-5,
+and socs_launches on phases 8-11; ms, library_ms and bound_ms at the
+exact-Abbe shape, socs_ms, socs_library_ms and socs_bound_ms at
 (4, 1024, 1024)).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -80,8 +99,12 @@ KERNELS = {
                       "row kernels at :297 and :431)",
     "column_intensity": f"{TPU_KERNELS}:161 (column_intensity_int8)",
 }
-KERNEL_SHAPES = ((4, 1024, 520), (4, 2048, 1032), (3, 96, 40))
-SOCS_KERNEL_SHAPES = ((4, 1024, 1024), (4, 2048, 2048))
+RAGGED_SHAPE = (2, 328, 264)  # kp = 288: a half-full last K stage
+KERNEL_SHAPES = ((4, 1024, 520), (4, 2048, 1032), (3, 96, 40), RAGGED_SHAPE)
+SOCS_KERNEL_SHAPES = ((4, 1024, 1024), (4, 2048, 2048), RAGGED_SHAPE)
+TENSOR_CORE_KERNELS = ("row_limb_gemm", "column_intensity")
+INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core peak, operations/s
+HBM_BYTES_S = 3.35e12
 TOL_KERNEL = 1e-6
 TOL_GOLDEN = 2e-3
 TOL_FFT = 1e-5
@@ -126,19 +149,101 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(torch, fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up."""
+def time_ms(torch, fn, reps: int = 5, calls: int = 10) -> float:
+    """Median over ``reps`` samples, after one warm-up call, of the time per
+    call of ``calls`` back-to-back calls of ``fn`` between two CUDA events.
+    Back to back, the device queue runs ahead of the host, so a call that
+    takes longer on the device than the wrapper on the host is timed on the
+    device."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def phase_build(build) -> None:
+    """Phase 1: build, then check registers, spills and machine code."""
+    t0 = time.perf_counter()
+    lib, nvcc_log = build.build()
+    log(f"[phase 1] built {lib.name} in {time.perf_counter() - t0:.2f} s")
+    for line in nvcc_log.splitlines():
+        if any(k in line for k in ("registers", "spill", "Compiling",
+                                   "wgmma", "Performance")):
+            log(f"  ptxas: {line.strip()}")
+    spills = ptxas_spills(nvcc_log)
+    counts = sass_counts(build.sass(lib))
+    for fn, c in sorted(counts.items()):
+        log(f"  sass {fn}: IGMMA {c['IGMMA']}, IMMA {c['IMMA']}, "
+            f"IDP.4A {c['IDP']}")
+    for kernel in TENSOR_CORE_KERNELS:
+        fns = [fn for fn in counts if f"{kernel}_kernel" in fn]
+        if len(fns) != 2:
+            raise AssertionError(f"{kernel}: expected 2 instantiations in the "
+                                 f"SASS, found {fns}")
+        for fn in fns:
+            c = counts[fn]
+            if c["IGMMA"] + c["IMMA"] == 0 or c["IDP"]:
+                raise AssertionError(f"{fn}: no tensor-core MMA or IDP.4A left: {c}")
+            if spills.get(fn) != 0:
+                raise AssertionError(f"{fn}: ptxas spill bytes {spills.get(fn)}")
+    log("  tensor-core MMA in every GEMM kernel, no IDP.4A, no spills: ok")
+    build.load_library()
+
+
+def ptxas_spills(nvcc_log: str) -> dict:
+    """{mangled function name: spill store + load bytes} from ptxas -v."""
+    spills, current = {}, None
+    for line in nvcc_log.splitlines():
+        if "Function properties for" in line:
+            current = line.split("Function properties for")[-1].strip()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            spills[current] = int(m.group(1)) + int(m.group(2))
+    return spills
+
+
+def sass_counts(sass: str) -> dict:
+    """{mangled kernel name: counts of IGMMA, IMMA, IDP opcodes}."""
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = {"IGMMA": 0, "IMMA": 0, "IDP": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      line)
+        if m and current and m.group(1) in counts[current]:
+            counts[current][m.group(1)] += 1
+    return counts
+
+
+def bound(name: str, batch: int, n: int, w: int, kp: int, fast: bool):
+    """(bound ms, 'operations' or 'bytes') of one kernel call: operations
+    over the int8 peak or bytes (each input read once, each output written
+    once) over the memory rate, whichever is larger."""
+    limbs, dots = (2, 3) if fast else (3, 6)
+    if name == "row_limb_gemm":
+        ops = 3 * dots * 2 * batch * n * w * w
+        nbytes = (3 * limbs * (batch * w + n) * kp + 4 * 3 * (batch * w + n)
+                  + 2 * 4 * batch * n * w)
+    elif name == "column_intensity":
+        ops = 3 * dots * 2 * batch * n * n * w
+        nbytes = (3 * limbs * (batch * n + n) * kp + 4 * 3 * (batch * n + n)
+                  + 4 * batch + 2 * 4 * n * n)
+    else:  # row_requantize: a few operations per element, bound by bytes
+        ops = 0
+        nbytes = 2 * 4 * batch * n * w + 9 * batch * n * kp + 4 * 3 * batch * n
+    t_ops, t_bytes = ops / INT8_TOPS, nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def dequant(limbs, scales) -> np.ndarray:
@@ -159,6 +264,7 @@ def phase_kernels(torch, ik, phase: int, shapes) -> dict:
                 + 1j * rng.normal(size=(batch, w, w))).astype(np.complex64)
         t0 = np.exp(1j * rng.normal(size=(n, w))).astype(np.complex64)
         x = torch.as_tensor(x_np, device=dev)
+        t0_c = torch.as_tensor(t0, device=dev)
         t_limbs, t_scales = ik.prepare_t0_limbs(
             torch.as_tensor(t0.real, device=dev), torch.as_tensor(t0.imag, device=dev))
         weights = torch.as_tensor(rng.random(batch).astype(np.float32), device=dev)
@@ -191,22 +297,36 @@ def phase_kernels(torch, ik, phase: int, shapes) -> dict:
             img_p = ik.column_intensity_int8_plain(*cargs, fast=fast).cpu().numpy()
             check("column_intensity image vs plain", nrms(img_k, img_p), TOL_KERNEL)
             err["column_intensity"] = float(np.abs(img_k - img_p).max())
+            y_c = torch.complex(yr_p, yi_p)
+            acc = torch.zeros((n, n), dtype=torch.float32, device=dev)
             ms = {
                 "row_limb_gemm": (
                     time_ms(torch, lambda: ik.row_limb_gemm(*args, fast=fast)),
-                    time_ms(torch, lambda: ik.row_limb_gemm_plain(*args, fast=fast))),
+                    time_ms(torch, lambda: ik.row_limb_gemm_plain(*args, fast=fast)),
+                    time_ms(torch, lambda: torch.matmul(t0_c, x))),
                 "row_requantize": (
                     time_ms(torch, lambda: ik.row_requantize(yr_p, yi_p, kp)),
-                    time_ms(torch, lambda: ik.row_requantize_plain(yr_p, yi_p, kp))),
+                    time_ms(torch, lambda: ik.row_requantize_plain(yr_p, yi_p, kp)),
+                    None),
                 "column_intensity": (
-                    time_ms(torch, lambda: ik.column_intensity_int8(*cargs, fast=fast)),
-                    time_ms(torch, lambda: ik.column_intensity_int8_plain(*cargs, fast=fast))),
+                    time_ms(torch, lambda: ik.column_intensity_int8(
+                        *cargs, fast=fast, out=acc)),
+                    time_ms(torch, lambda: ik.column_intensity_int8_plain(
+                        *cargs, fast=fast, out=acc)),
+                    time_ms(torch, lambda: torch.matmul(y_c, t0_c.T))),
             }
-            for name, (k_ms, p_ms) in ms.items():
-                log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            entries = {}
+            for name, (k_ms, p_ms, lib_ms) in ms.items():
+                b_ms, b_by = bound(name, batch, n, w, kp, fast)
+                lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+                log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                    f"library {lib}, bound {b_ms:.4f} ms ({b_by}), "
+                    f"{100 * b_ms / k_ms:.1f}% of bound")
+                entries[name] = {"max_abs_err": err[name], "ms": k_ms,
+                                 "plain_ms": p_ms, "library_ms": lib_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by}
             if not stats:
-                stats = {name: {"max_abs_err": err[name], "ms": ms[name][0],
-                                "plain_ms": ms[name][1]} for name in ms}
+                stats = entries
     return stats
 
 
@@ -366,6 +486,11 @@ def phase_socs_headline(torch, lt):
     bench = check_image(bench, n)
     log(f"  bench.py form (Nystrom, power_iters=1): cold build {t_build:.3f} s, "
         f"apply {t_bench_apply:.3f} s")
+    for engine in ("int8", "matmul", "fft"):
+        lt.socs_image(res.spectrum, socs, cfg, engine=engine)  # warm-up
+        _, t = _timed(torch, lambda: lt.socs_image(res.spectrum, socs, cfg,
+                                                   engine=engine))
+        log(f"  warm rank-{SOCS_RANK} apply, engine {engine}: {t:.4f} s")
 
     pts = source_points(src)
     exact, t_exact = _timed(torch, lambda: abbe_image_points(
@@ -490,13 +615,7 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"[phase 0] nvidia-smi: {smi}")
 
-    t0 = time.perf_counter()
-    lib, nvcc_log = build.build()
-    log(f"[phase 1] built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
-    build.load_library()
+    phase_build(build)
 
     stats = phase_kernels(torch, ik, 2, KERNEL_SHAPES)
 

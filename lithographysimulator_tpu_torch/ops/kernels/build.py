@@ -30,7 +30,9 @@ SIGNATURES = {
     "row_limb_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "row_requantize": (_P, _P, _P, _P, _I, _I, _I, _P),
     "column_intensity": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "set_dynamic_smem": (_I,),
 }
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -55,10 +57,11 @@ def library_path() -> Path:
 def build() -> tuple[Path, str]:
     """Compile the library unless an up-to-date one exists; returns its path
     and nvcc's output (``-Xptxas -v``: registers, shared memory, spills per
-    kernel; empty when the library was already built)."""
+    kernel), kept beside the library for later calls."""
     lib = library_path()
-    if lib.exists():
-        return lib, ""
+    log = lib.with_suffix(".log")
+    if lib.exists() and log.exists():
+        return lib, log.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
@@ -67,8 +70,16 @@ def build() -> tuple[Path, str]:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a half-written file
-    return lib, proc.stdout + proc.stderr
+    return lib, log.read_text()
+
+
+def sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of the built library: the machine code per kernel."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
 
 
 @functools.cache

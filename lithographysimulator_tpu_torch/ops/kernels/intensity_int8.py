@@ -13,8 +13,11 @@ that reach fp32 accuracy (~2^-24 relative to each row's max):
   S2/65536)``; ``fast`` drops the 2^-16 group (3 dots, ~1e-5 accuracy);
 * complex products use the 3M planes r, i and r+i.
 
-Three hand-written CUDA kernels (``csrc/intensity_int8.cu``) carry it on
-the card, each behind a wrapper with a plain PyTorch version beside it:
+Three hand-written CUDA kernels (``csrc/intensity_int8.cu``, ``sm_90a``)
+carry it on the card, each behind a wrapper with a plain PyTorch version
+beside it. The two GEMM kernels run the limb dots on Hopper's int8 tensor
+cores (``wgmma`` s8 x s8 -> s32, operands brought in by TMA);
+``row_requantize`` is a memory-bound warp-per-row pass:
 
 =================  ==========================================  ===========
 wrapper            computes                                    TPU kernel
@@ -39,7 +42,8 @@ from __future__ import annotations
 
 import torch
 
-#: contraction padding; equals the CUDA kernels' shared-memory slab depth KT
+#: contraction padding: the depth of one int8 wgmma (the kernels' TMA boxes
+#: zero-fill their 128-byte slabs past it)
 K_ALIGN = 32
 
 #: kernel launches by name (wrappers count only their CUDA launches)

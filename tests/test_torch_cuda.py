@@ -34,20 +34,31 @@ def _deq(limbs, scales):
             * scales.double()[..., None]).cpu().numpy()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("b,n,w", [(3, 96, 40), (2, 256, 136)])
-def test_kernels_match_plain(b, n, w, fast):
-    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
-
-    dev = _cuda()
+def _operands(ik, dev, b, n, w):
+    """Quantized X limbs, scales and T0 limbs, scales from seed n + w."""
     rng = np.random.default_rng(n + w)
     x = torch.as_tensor((rng.normal(size=(b, w, w)) + 1j * rng.normal(size=(b, w, w))
                          ).astype(np.complex64), device=dev)
     t0 = np.exp(1j * rng.normal(size=(n, w))).astype(np.complex64)
     t_limbs, t_scales = ik.prepare_t0_limbs(torch.as_tensor(t0.real, device=dev),
                                             torch.as_tensor(t0.imag, device=dev))
-    args = (*ik.quantize_x(x), t_limbs, t_scales)
+    return (*ik.quantize_x(x), t_limbs, t_scales), rng
+
+
+# Shapes at every edge of the 64 x 64 output tiles and the 64-byte K stages:
+# B = 1; n and w neither multiples of 64 nor of the stage (kp = 160, 288,
+# where the last stage is half full); a tiny ragged one; and the SOCS apply's
+# (4, 1024, 1024).
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("b,n,w", [(3, 96, 40), (2, 256, 136), (1, 200, 136),
+                                   (2, 328, 264), (4, 1024, 1024)])
+def test_kernels_match_plain(b, n, w, fast):
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    args, rng = _operands(ik, dev, b, n, w)
+    t_limbs, t_scales = args[2], args[3]
     before = dict(ik.LAUNCHES)
     yr, yi = ik.row_limb_gemm(*args, fast=fast)
     pr, pi = ik.row_limb_gemm_plain(*args, fast=fast)
@@ -63,6 +74,35 @@ def test_kernels_match_plain(b, n, w, fast):
     assert _nrms(img.cpu(), ref.cpu()) < TOL
     torch.cuda.synchronize()
     assert all(ik.LAUNCHES[k] == before[k] + 1 for k in before)
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises():
+    """A launch the card refuses (more dynamic shared memory than a block
+    may have) raises and is not counted; it never hands back the zeros the
+    wrapper allocated. The next launch at the kernels' own size works."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+    from lithographysimulator_tpu_torch.ops.kernels.build import load_library
+
+    dev = _cuda()
+    args, rng = _operands(ik, dev, 2, 96, 40)
+    y_limbs, y_scales = ik.row_requantize_plain(
+        *ik.row_limb_gemm_plain(*args), args[2].shape[-1])
+    weights = torch.as_tensor(rng.random(2).astype(np.float32), device=dev)
+    cargs = (y_limbs, y_scales, args[2], args[3], weights)
+    lib = load_library()
+    before = dict(ik.LAUNCHES)
+    lib.set_dynamic_smem(256 * 1024)  # above the 227 KB a block may use
+    try:
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            ik.row_limb_gemm(*args)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            ik.column_intensity_int8(*cargs)
+    finally:
+        lib.set_dynamic_smem(0)
+    assert ik.LAUNCHES == before
+    img = ik.column_intensity_int8(*cargs)
+    assert _nrms(img.cpu(), ik.column_intensity_int8_plain(*cargs).cpu()) < TOL
 
 
 @pytest.mark.cuda

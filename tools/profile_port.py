@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Kernel-time breakdown of the PyTorch/CUDA port (lithographysimulator_tpu_torch)
+on one CUDA card, from torch.profiler. Run from the repository root:
+
+    PYTHONPATH=. python3 tools/profile_port.py [--chunks 512] [--rank 256]
+
+1. 1024^2 exact Abbe (lines/spaces 64/128 px, quasar sigma 0.4/0.8, as in
+   chip_smoke.py phase 4): the first ``chunks`` chunks of 4 source points
+   through abbe_image_points on the int8 and the f32 matmul engines;
+2. 1024^2 SOCS, the same mask and source: one rank-``rank``
+   randomized_socs build (Rayleigh-Ritz, power_iters=2, as simulate uses)
+   and one socs_image apply on each of the int8, matmul and fft engines.
+
+Each run is traced after one untraced warm-up run. For each it prints the
+wall clock (host clock around a synchronized run), the kernel time (the sum
+of the CUDA device events), the busy share (kernel time over wall) and the
+kernel time by group and by name; the last line holds the same as JSON. It
+exits with an error where there is no CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+
+GROUPS = (
+    ("column_intensity", ("column_intensity_kernel",)),
+    ("row_limb_gemm", ("row_limb_gemm_kernel",)),
+    ("row_requantize", ("row_requantize_kernel",)),
+    ("cuBLAS GEMM", ("gemm", "Gemm", "xmma", "cutlass")),
+    ("cuFFT", ("fft", "FFT")),
+)
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other (elementwise, reductions, copies)"
+
+
+def trace(torch, fn) -> dict:
+    """Wall, kernel time, busy share and kernel time by group and name (ms)
+    of one traced call of ``fn`` after one untraced warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name = defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_name[e.key] += us / 1e3
+    by_group = defaultdict(float)
+    for name, ms in by_name.items():
+        by_group[group_of(name)] += ms
+    kernel = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall, "kernel_ms": kernel, "busy": kernel / wall,
+            "by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [[name[:90], ms] for name, ms in top]}
+
+
+def show(title: str, r: dict) -> None:
+    print(f"{title}: wall {r['wall_ms']:.2f} ms, kernels {r['kernel_ms']:.2f} ms, "
+          f"busy {100 * r['busy']:.1f}%", flush=True)
+    for group, ms in r["by_group"].items():
+        print(f"  {group}: {ms:.2f} ms ({100 * ms / r['wall_ms']:.1f}% of wall)")
+    for name, ms in r["top_kernels"]:
+        print(f"    {ms:9.3f} ms  {name}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--chunks", type=int, default=512)
+    ap.add_argument("--rank", type=int, default=256)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port.py: needs a CUDA device")
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.abbe import _pad_points, source_points
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    n = 1024
+    cfg = lt.OpticsConfig(pixel_number=n)
+    mask = lt.lines_and_spaces(cfg, line_width_px=n // 16, pitch_px=n // 8,
+                               device="cuda")
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device="cuda")
+    pts = source_points(src)
+    shifts, weights = _pad_points(pts.shifts[:4 * args.chunks],
+                                  pts.weights[:4 * args.chunks], 4)
+    results = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    for engine in ("int8", "matmul"):
+        r = trace(torch, lambda: lt.abbe_image_points(
+            spectrum, pupil, shifts, weights, cfg, device="cuda", engine=engine))
+        show(f"1024^2 exact Abbe, {args.chunks} chunks of 4, engine {engine}", r)
+        results[f"exact_{engine}"] = r
+    socs_holder = {}
+
+    def build():
+        socs_holder["socs"] = lt.randomized_socs(pupil, src, cfg, rank=args.rank)
+
+    r = trace(torch, build)
+    show(f"1024^2 SOCS build, rank {args.rank}, Rayleigh-Ritz, power_iters=2", r)
+    results["socs_build"] = r
+    for engine in ("int8", "matmul", "fft"):
+        r = trace(torch, lambda: lt.socs_image(spectrum, socs_holder["socs"], cfg,
+                                               engine=engine))
+        show(f"1024^2 SOCS apply, rank {args.rank}, engine {engine}", r)
+        results[f"socs_apply_{engine}"] = r
+    print(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
