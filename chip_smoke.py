@@ -12,13 +12,17 @@ It exits 0 only if every phase passes; each fails hard on a miss:
    registers and spills and, from cuobjdump -sass, each kernel's count of
    tensor-core integer MMA (IGMMA for wgmma, IMMA for mma.sync) and of
    IDP.4A (__dp4a). Fails if row_limb_gemm or column_intensity has no
-   tensor-core MMA, any IDP.4A, or spills;
+   tensor-core MMA or any IDP.4A, or if any kernel spills;
 2. each kernel against its plain PyTorch version on the card, at the
    exact-Abbe shapes (B=4, n=1024, w=520), (4, 2048, 1032), a ragged
    (3, 96, 40) and (2, 328, 264), which the 64 x 64 tiles and 64-byte K
    stages do not divide, 3-limb and 2-limb: normalized RMS <= 1e-6 on
-   dequantized Y and on the image; median kernel, plain and library times
-   (CUDA events) beside the kernel's bound and its share of the bound;
+   dequantized X and Y and on the image; the two quantizers' limbs and
+   scales equal the plain versions' bit for bit (the count of differing
+   limbs is printed); window_product_limbs reads windows of
+   a tiled 2n x 2n array and an n x n one at odd columns, so its loads are
+   only 8-byte aligned; median kernel, plain and library times (CUDA
+   events) beside the kernel's bound and its share of the bound;
 3. the 64^2 demo through simulate(device='cuda'): <= 2e-3 normalized RMS
    against tests/golden/demo_aerial_image_fft.npy and <= 1e-5 against the
    port's own fft engine on the card;
@@ -29,14 +33,17 @@ It exits 0 only if every phase passes; each fails hard on a miss:
    and the count is printed;
 5. 2048^2, the 8-point sparse source, int8 engine against the complex128
    NumPy oracle (tests/numpy_oracle.py): <= 1e-6;
-6. every kernel's launch count from phases 3-5 is > 0.
+6. every kernel's launch count from phases 3-5 is > 0, and
+   window_product_limbs launched as often as row_limb_gemm (an int8 chunk
+   is those two, row_requantize and column_intensity).
 
 The SOCS (Hopkins) path, its launches counted apart from phases 3-5:
 
 7. each kernel against its plain version at the SOCS apply shapes, where
-   the contraction is the whole chirp (w = n): (4, 1024, 1024) and
-   (4, 2048, 2048), and the ragged (2, 328, 264), 3-limb and 2-limb,
-   <= 1e-6; times as in phase 2;
+   the contraction is the whole chirp (w = n) and window_product_limbs
+   multiplies a batch of whole kernels by the spectrum (zero starts):
+   (4, 1024, 1024) and (4, 2048, 2048), and the ragged (2, 328, 264) with
+   odd starts, 3-limb and 2-limb, <= 1e-6; times as in phase 2;
 8. the SOCS headline at 1024^2 (phase 4's mask and source, no
    aberrations): simulate(solver='socs', socs_rank=256) cold (build +
    apply), again on its cached kernels (apply) and with a new aberration
@@ -56,19 +63,22 @@ The SOCS (Hopkins) path, its launches counted apart from phases 3-5:
     complex128 oracle: <= 1e-5;
 11. the lean in-place build at 1024^2, rank 64: its image within 2e-4 of
     the standard build's; the build times and memory peaks of both;
-12. every kernel's launch count from phases 8-11 is > 0.
+12. as phase 6, for phases 8-11.
 
 Run time on one H100 is about 2 minutes, most of it phase 4's int8 run,
 phase 5's host oracle and phase 8's exact image.
 
-Kernel times are medians of 5 CUDA-event samples of 10 back-to-back calls
-each, after a warm-up (time_ms). library_ms is
+Kernel, plain and library times are device times: medians of 5 CUDA-event
+samples of one CUDA-graph replay of 10 back-to-back calls each, after a
+warm-up (time_ms); the wrappers' host time is not in them. plain_ms of window_product_limbs is the
+chain it replaces: the gather and product, then quantize_x. library_ms is
 one PyTorch call of the same contraction, in complex64 with TF32 off:
 torch.matmul(T0, X) for row_limb_gemm and torch.matmul(Y, T0^T) for
-column_intensity (without the |E|^2 sum); none for row_requantize.
+column_intensity (without the |E|^2 sum); none for the two quantizers.
 bound_ms is the least time the card could take: the larger of the int8
 tensor-core operations (3 planes x 6 limb dots x 2*M*N*K, 3 dots 2-limb)
-over 1,979 TOP/s and the bytes read and written once over 3.35 TB/s.
+over 1,979 TOP/s and the bytes read and written once over 3.35 TB/s; for
+window_product_limbs the bytes read are the union of this run's windows.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is nvidia-smi's name and power limit, and the one before that lists each
@@ -93,6 +103,9 @@ REPO = Path(__file__).resolve().parent
 CU_SOURCE = "lithographysimulator_tpu_torch/csrc/intensity_int8.cu"
 TPU_KERNELS = "lithographysimulator_tpu/ops/kernels/intensity_int8.py"
 KERNELS = {
+    "window_product_limbs": f"{TPU_KERNELS}:273-278 (quantize_cols of X in "
+                            "row_transform_int8), "
+                            f"{TPU_KERNELS}:402-407 (in row_transform_int8_splitk)",
     "row_limb_gemm": f"{TPU_KERNELS}:297 (row_transform_int8), "
                      f"{TPU_KERNELS}:431 (row_transform_int8_splitk)",
     "row_requantize": f"{TPU_KERNELS}:203 (_quant_rows_in_kernel, in the "
@@ -150,22 +163,32 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, reps: int = 5, calls: int = 10) -> float:
-    """Median over ``reps`` samples, after one warm-up call, of the time per
-    call of ``calls`` back-to-back calls of ``fn`` between two CUDA events.
-    Back to back, the device queue runs ahead of the host, so a call that
-    takes longer on the device than the wrapper on the host is timed on the
-    device."""
-    fn()
+    """Device time of one call of ``fn``: ``calls`` back-to-back calls are
+    captured once into a CUDA graph (after a warm-up call on a side
+    stream), and the median over ``reps`` replays between two CUDA events
+    is divided by ``calls``. A replay launches the captured kernels with no
+    Python in between, so the wrappers' host time (about 0.04 ms a call)
+    is not counted, however short the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(calls):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    del graph
     return float(np.median(times))
 
 
@@ -192,9 +215,12 @@ def phase_build(build) -> None:
             c = counts[fn]
             if c["IGMMA"] + c["IMMA"] == 0 or c["IDP"]:
                 raise AssertionError(f"{fn}: no tensor-core MMA or IDP.4A left: {c}")
-            if spills.get(fn) != 0:
-                raise AssertionError(f"{fn}: ptxas spill bytes {spills.get(fn)}")
-    log("  tensor-core MMA in every GEMM kernel, no IDP.4A, no spills: ok")
+    for kernel in KERNELS:
+        fns = [fn for fn in counts if f"{kernel}_kernel" in fn]
+        if not fns or any(spills.get(fn) != 0 for fn in fns):
+            raise AssertionError(f"{kernel}: kernels {fns}, ptxas spill bytes "
+                                 f"{[spills.get(fn) for fn in fns]}")
+    log("  tensor-core MMA in every GEMM kernel, no IDP.4A, no kernel spills: ok")
     build.load_library()
 
 
@@ -226,12 +252,17 @@ def sass_counts(sass: str) -> dict:
     return counts
 
 
-def bound(name: str, batch: int, n: int, w: int, kp: int, fast: bool):
+def bound(name: str, batch: int, n: int, w: int, kp: int, fast: bool,
+          read_bytes: int = 0):
     """(bound ms, 'operations' or 'bytes') of one kernel call: operations
     over the int8 peak or bytes (each input read once, each output written
-    once) over the memory rate, whichever is larger."""
+    once) over the memory rate, whichever is larger. ``read_bytes`` is what
+    window_product_limbs reads (window_read_bytes)."""
     limbs, dots = (2, 3) if fast else (3, 6)
-    if name == "row_limb_gemm":
+    if name == "window_product_limbs":  # a few operations per element
+        ops = 0
+        nbytes = read_bytes + 16 * batch + 9 * batch * w * kp + 4 * 3 * batch * w
+    elif name == "row_limb_gemm":
         ops = 3 * dots * 2 * batch * n * w * w
         nbytes = (3 * limbs * (batch * w + n) * kp + 4 * 3 * (batch * w + n)
                   + 2 * 4 * batch * n * w)
@@ -246,6 +277,35 @@ def bound(name: str, batch: int, n: int, w: int, kp: int, fast: bool):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def window_read_bytes(starts: np.ndarray, w: int, a_shape, b_shape) -> int:
+    """Bytes of the complex64 elements that the (w, w) windows at ``starts``
+    (B, 4) cover, each counted once: the union of the windows in each array
+    of ``a`` (one per batch entry, or one shared) and in ``b``."""
+    a_cover = np.zeros(tuple(a_shape), bool)
+    b_cover = np.zeros(tuple(b_shape), bool)
+    for k, (ar, ac, br, bc) in enumerate(starts):
+        a_cover[k if a_shape[0] > 1 else 0, ar:ar + w, ac:ac + w] = True
+        b_cover[br:br + w, bc:bc + w] = True
+    return 8 * int(a_cover.sum() + b_cover.sum())
+
+
+def window_operands(rng, batch: int, n: int, w: int):
+    """Operands of window_product_limbs as the main paths give them: for
+    w < n (exact Abbe) one tiled 2n x 2n array and an n x n spectrum with
+    windows at random starts, the columns odd (8-byte aligned rows); for
+    w = n (SOCS) a batch of n x n kernels at zero starts."""
+    def cplx(*shape):
+        return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+    if w == n:
+        return cplx(batch, n, n), cplx(n, n), np.zeros((batch, 4), np.int64)
+    starts = np.stack([rng.integers(0, 2 * n - w + 1, batch),
+                       rng.integers(0, (2 * n - w) // 2, batch) * 2 + 1,
+                       rng.integers(0, n - w + 1, batch),
+                       rng.integers(0, (n - w) // 2, batch) * 2 + 1], axis=1)
+    return cplx(1, 2 * n, 2 * n), cplx(n, n), starts
+
+
 def dequant(limbs, scales) -> np.ndarray:
     """(3, 3, B, n, kp) limbs + (3, B, n) scales -> (3, B, n, kp) f64."""
     l = limbs.double()
@@ -253,23 +313,55 @@ def dequant(limbs, scales) -> np.ndarray:
     return v.cpu().numpy()
 
 
+def check_same_limbs(name: str, diff: int, scales_k, scales_p) -> None:
+    """The quantizers' design gives the plain versions' limbs and scales
+    bit for bit: any differing limb or scale fails the phase."""
+    bits_k, bits_p = (s.cpu().numpy().view(np.int32) for s in (scales_k, scales_p))
+    differ = int((bits_k != bits_p).sum())
+    if diff or differ:
+        raise AssertionError(f"{name}: {diff} limbs and {differ} scales differ "
+                             f"from plain")
+    log(f"  {name} limbs and scales equal plain's bit for bit: ok")
+
+
 def phase_kernels(torch, ik, phase: int, shapes) -> dict:
     """Phases 2 and 7: each kernel against its plain version at ``shapes``;
-    returns the JSON fields measured at the first shape, 3-limb mode."""
+    returns the JSON fields measured at the first shape, 3-limb mode. Each
+    kernel gets the plain version's output of the kernel before it, so
+    both see the same input."""
     rng = np.random.default_rng(phase)
     dev = torch.device("cuda")
     stats = {}
     for batch, n, w in shapes:
-        x_np = (rng.normal(size=(batch, w, w))
-                + 1j * rng.normal(size=(batch, w, w))).astype(np.complex64)
+        a_np, b_np, starts_np = window_operands(rng, batch, n, w)
+        starts_np = ik.check_window_starts(starts_np, w, a_np.shape, b_np.shape)
+        a, b = torch.as_tensor(a_np, device=dev), torch.as_tensor(b_np, device=dev)
+        starts = torch.as_tensor(starts_np, device=dev)
         t0 = np.exp(1j * rng.normal(size=(n, w))).astype(np.complex64)
-        x = torch.as_tensor(x_np, device=dev)
         t0_c = torch.as_tensor(t0, device=dev)
         t_limbs, t_scales = ik.prepare_t0_limbs(
             torch.as_tensor(t0.real, device=dev), torch.as_tensor(t0.imag, device=dev))
         weights = torch.as_tensor(rng.random(batch).astype(np.float32), device=dev)
         kp = t_limbs.shape[-1]
-        x_limbs, x_scales = ik.quantize_x(x)
+        log(f"[phase {phase}] B={batch} n={n} w={w}, window starts "
+            f"{starts_np[0].tolist()}{' (odd columns)' if w < n else ''}")
+        # window_product_limbs: X's column limbs straight from the operands
+        wargs = (a, b, starts, w)
+        xl_k, xs_k = ik.window_product_limbs(*wargs)
+        x_limbs, x_scales = ik.window_product_limbs_plain(*wargs)
+        diff = int((xl_k != x_limbs).sum())
+        log(f"  window_product_limbs limbs differing from plain: {diff} of "
+            f"{x_limbs.numel()}")
+        check_same_limbs("window_product_limbs", diff, xs_k, x_scales)
+        dq_k, dq_p = dequant(xl_k, xs_k), dequant(x_limbs, x_scales)
+        check("window_product_limbs dequantized X vs plain", nrms(dq_k, dq_p),
+              TOL_KERNEL)
+        x_err = float(np.abs(dq_k - dq_p).max())
+        x_ms = (time_ms(torch, lambda: ik.window_product_limbs(*wargs)),
+                time_ms(torch, lambda: ik.window_product_limbs_plain(*wargs)),
+                None)
+        x_bytes = window_read_bytes(starts_np, w, a_np.shape, b_np.shape)
+        x = ik.window_products(a, b, starts, w)
         for fast in (False, True):
             tag = f"B={batch} n={n} w={w} {'2-limb' if fast else '3-limb'}"
             log(f"[phase {phase}] {tag}")
@@ -281,17 +373,20 @@ def phase_kernels(torch, ik, phase: int, shapes) -> dict:
             y_k = torch.complex(yr_k, yi_k).cpu().numpy()
             y_p = torch.complex(yr_p, yi_p).cpu().numpy()
             check("row_limb_gemm Y vs plain", nrms(y_k, y_p), TOL_KERNEL)
-            err = {"row_limb_gemm": float(np.abs(y_k - y_p).max())}
-            # row_requantize, on the plain Y so both see the same input
+            err = {"window_product_limbs": x_err,
+                   "row_limb_gemm": float(np.abs(y_k - y_p).max())}
+            # row_requantize
             yl_k, ys_k = ik.row_requantize(yr_p, yi_p, kp)
             yl_p, ys_p = ik.row_requantize_plain(yr_p, yi_p, kp)
             dq_k, dq_p = dequant(yl_k, ys_k), dequant(yl_p, ys_p)
             diff = int((yl_k != yl_p).sum())
-            log(f"  row_requantize limbs differing from plain: {diff}")
+            log(f"  row_requantize limbs differing from plain: {diff} of "
+                f"{yl_p.numel()}")
+            check_same_limbs("row_requantize", diff, ys_k, ys_p)
             check("row_requantize dequantized Y vs plain", nrms(dq_k, dq_p),
                   TOL_KERNEL)
             err["row_requantize"] = float(np.abs(dq_k - dq_p).max())
-            # column_intensity, on the plain limbs
+            # column_intensity
             cargs = (yl_p, ys_p, t_limbs, t_scales, weights)
             img_k = ik.column_intensity_int8(*cargs, fast=fast).cpu().numpy()
             img_p = ik.column_intensity_int8_plain(*cargs, fast=fast).cpu().numpy()
@@ -300,6 +395,7 @@ def phase_kernels(torch, ik, phase: int, shapes) -> dict:
             y_c = torch.complex(yr_p, yi_p)
             acc = torch.zeros((n, n), dtype=torch.float32, device=dev)
             ms = {
+                "window_product_limbs": x_ms,
                 "row_limb_gemm": (
                     time_ms(torch, lambda: ik.row_limb_gemm(*args, fast=fast)),
                     time_ms(torch, lambda: ik.row_limb_gemm_plain(*args, fast=fast)),
@@ -317,7 +413,7 @@ def phase_kernels(torch, ik, phase: int, shapes) -> dict:
             }
             entries = {}
             for name, (k_ms, p_ms, lib_ms) in ms.items():
-                b_ms, b_by = bound(name, batch, n, w, kp, fast)
+                b_ms, b_by = bound(name, batch, n, w, kp, fast, x_bytes)
                 lib = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
                 log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                     f"library {lib}, bound {b_ms:.4f} ms ({b_by}), "
@@ -587,12 +683,18 @@ def phase_socs_lean(torch, lt) -> None:
 
 
 def _launched(ik, phases: str) -> dict:
+    """The launch counts since the last reset: every kernel of the path ran,
+    and one window_product_limbs launch fed each row_limb_gemm launch."""
     launches = dict(ik.LAUNCHES)
     log(f"  launches in phases {phases}: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched in phases {phases}: "
                              f"{missing}")
+    if launches["window_product_limbs"] != launches["row_limb_gemm"]:
+        raise AssertionError(f"phases {phases}: window_product_limbs launched "
+                             f"{launches['window_product_limbs']} times, "
+                             f"row_limb_gemm {launches['row_limb_gemm']}")
     return launches
 
 

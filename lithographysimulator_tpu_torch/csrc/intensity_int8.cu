@@ -15,6 +15,11 @@
 //                        (_quant_rows_in_kernel, :203-217): a separate launch,
 //                        because the row max needs the whole row, which spans
 //                        several output tiles of row_limb_gemm.
+//   window_product_limbs <- the X side of both row kernels: the per-column
+//                        split of X (quantize_cols at :273-278 and :402-407),
+//                        with the windowed products X_b (abbe.py's
+//                        _windowed_products) that XLA fused into it, formed
+//                        on load; X itself never reaches device memory.
 //
 // Limb math (shared with the plain PyTorch versions beside the wrappers): an
 // f32 row (or column) is split into 3 signed radix-256 int8 limbs with one
@@ -66,17 +71,26 @@
 //     SM; at n = 1024 the 128 x 64 tiles of column_intensity are 128 blocks
 //     for 132 SMs. The b loop of column_intensity stays in the block, in
 //     order and without atomics: the image is deterministic.
-// row_requantize is bound by bytes (one read of Y, one write of its limbs)
-// and stays a plain warp-per-row pass. No kernel allocates device memory:
-// the Python wrappers allocate every output; the TMA maps are built on the
-// host per launch and passed as kernel parameters.
+// The two limb quantizers, row_requantize and window_product_limbs, are
+// bound by bytes (one read of their f32 or complex input, one write of 9
+// limb planes) and share one design: a thread splits 16 consecutive values
+// of a row (or column) held in registers, so each plane's limbs leave as
+// one 16-byte store per limb, and the three maxima (r, i, r+i) are taken
+// as the input is read (row_requantize reads it once; window_product_limbs
+// forms its products a second time, from L2, for the split). Their split
+// runs on full-rate adds only (see MAGIC and div_rn). No kernel
+// allocates device memory: the Python wrappers allocate every output; the
+// TMA maps are built on the host per launch and passed as kernel
+// parameters.
 //
-// Rounding: the limb split uses rintf (round half to even, as torch.round
-// and jnp.round), never roundf. The file is built with nvcc's default
-// --fmad=true; the requantization multiplies only by powers of two and
-// subtracts exactly representable values, so contraction cannot change its
-// results, and the dequantize/3M epilogues differ from the plain versions
-// only in f32 rounding order (compared by tolerance, not bit for bit).
+// Rounding: the limb split rounds half to even (as torch.round and
+// jnp.round), never half away from zero, and divides as IEEE division
+// does. The file is built with nvcc's default --fmad=true; the split
+// multiplies only by powers of two and subtracts exactly representable
+// values, so contraction cannot change it, and the complex product is
+// written with explicit roundings: the quantizers give the plain versions'
+// limbs bit for bit. The dequantize/3M epilogues differ from the plain
+// versions only in f32 rounding order (compared by tolerance).
 
 #include <cuda.h>  // CUtensorMap types; the encoder is found via the runtime
 #include <cuda_runtime.h>
@@ -97,7 +111,11 @@ constexpr int A_LIMB = BM * KS;            // bytes of one limb of the A slab
 constexpr int B_LIMB = BN * KS;
 constexpr int STAGE_BYTES = 3 * (A_LIMB + B_LIMB);
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8;  // + barriers
-constexpr int REQ_THREADS = 256;           // row_requantize: 8 rows a block
+constexpr int SEG = 16;                    // values one quantizer thread splits
+constexpr int REQ_THREADS = 256;           // row_requantize: least block size
+constexpr int REQ_MAX_THREADS = 512;       // one thread per SEG of a row
+constexpr int WPL_COLS = 8;                // window_product_limbs: columns a block
+constexpr int WPL_MAX_THREADS = 512;
 
 // Dynamic shared memory a launch asks for; 0 means SMEM_BYTES. Tests set it
 // above the device limit to see a refused launch reported.
@@ -456,58 +474,316 @@ column_intensity_kernel(const __grid_constant__ CUtensorMap map_y,
   }
 }
 
-// Limb split of one value, exactly as quantize_rows (intensity_int8.py:52-71).
-__device__ __forceinline__ void split_limbs(float q, int8_t& o0, int8_t& o1,
-                                            int8_t& o2) {
-  float l0 = rintf(q * (1.0f / 65536.0f));  // |l0| <= 127 by the scale
-  float r = q - l0 * 65536.0f;              // |r| <= 2^15
-  float l1 = rintf(r * (1.0f / 256.0f));    // in [-128, 128]
-  if (l1 > 127.0f) {                        // +128 carries; -128 fits int8
-    l0 += 1.0f;
-    l1 -= 256.0f;
+// ---------------------------------------------------------------------------
+// The limb quantizers
+// ---------------------------------------------------------------------------
+
+// x + MAGIC rounds x (|x| < 2^22) to an integer k, half to even as rintf,
+// and leaves k in the low mantissa bits: bits(x + MAGIC) = 0x4B400000 + k,
+// whose low byte is k as an int8. The limb split runs on these sums, so it
+// needs no rounding or conversion instructions (CUDA's throughput table
+// gives float-to-int conversions 16 a clock an SM on the H100, FP32 adds
+// 128), only adds and byte permutes.
+constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23
+
+// Limb split of one value, exactly as quantize_rows (intensity_int8.py:52-71):
+// rint (half to even), the +128 carry and the l2 clip, on q = a / scale.
+// Returns MAGIC + l for each limb l. Every product and difference below is
+// exact (powers of two, and Sterbenz), so FMA contraction cannot change it.
+__device__ __forceinline__ void split_limbs(float q, float& t0, float& t1,
+                                            float& t2) {
+  t0 = __fadd_rn(q * (1.0f / 65536.0f), MAGIC);   // |l0| <= 127 by the scale
+  float r = q - (t0 - MAGIC) * 65536.0f;          // |r| <= 2^15
+  t1 = __fadd_rn(r * (1.0f / 256.0f), MAGIC);     // l1 in [-128, 128]
+  if (t1 > MAGIC + 127.0f) {                      // +128 carries; -128 fits
+    t0 += 1.0f;
+    t1 -= 256.0f;
   }
-  r = q - l0 * 65536.0f - l1 * 256.0f;      // |r| <= 128
-  const float l2 = fminf(fmaxf(rintf(r), -128.0f), 127.0f);
-  o0 = (int8_t)(int)l0;
-  o1 = (int8_t)(int)l1;
-  o2 = (int8_t)(int)l2;
+  r = q - (t0 - MAGIC) * 65536.0f - (t1 - MAGIC) * 256.0f;  // |r| <= 128
+  t2 = fminf(fmaxf(__fadd_rn(r, MAGIC), MAGIC - 128.0f), MAGIC + 127.0f);
 }
 
-__device__ __forceinline__ float plane_value(const float* yr, const float* yi,
-                                             int p, long o) {
-  return p == 0 ? yr[o] : p == 1 ? yi[o] : yr[o] + yi[o];
+// a / s rounded as IEEE division, given y = 1 / s rounded (one true
+// division per row): two Markstein corrections q + (a - s q) y, the
+// remainder exact by FMA; the second starts from a faithful quotient, so
+// it rounds correctly (a quotient in the subnormal range may not, but
+// its limbs are 0 either way).
+__device__ __forceinline__ float div_rn(float a, float s, float y) {
+  float q = __fmul_rn(a, y);
+  q = __fmaf_rn(__fmaf_rn(-q, s, a), y, q);
+  return __fmaf_rn(__fmaf_rn(-q, s, a), y, q);
+}
+
+// The int8 low bytes of four MAGIC sums, packed little-endian.
+__device__ __forceinline__ uint32_t pack4(float a, float b, float c, float d) {
+  return __byte_perm(__byte_perm(__float_as_uint(a), __float_as_uint(b), 0x0040),
+                     __byte_perm(__float_as_uint(c), __float_as_uint(d), 0x0040),
+                     0x5410);
+}
+
+// max(m, |x|) on the float bits: non-negative floats order as their bits,
+// and a NaN wins, as in torch.amax.
+__device__ __forceinline__ float absmax(float m, float x) {
+  return __int_as_float(max(__float_as_int(m), __float_as_int(fabsf(x))));
+}
+
+// Scale of a row or column from its max |value| (intensity_int8.py's
+// _quantize): amax / (127 * 2^16), and 1 for an all-zero one.
+__device__ __forceinline__ float limb_scale(float amax) {
+  return amax > 0.0f ? amax / (127.0f * 65536.0f) : 1.0f;
+}
+
+// The three maxima (|r|, |i|, |r + i|) of SEG values.
+__device__ __forceinline__ void plane_maxima(const float (&re)[SEG],
+                                             const float (&im)[SEG],
+                                             float (&m)[3]) {
+#pragma unroll
+  for (int i = 0; i < SEG; ++i) {
+    m[0] = absmax(m[0], re[i]);
+    m[1] = absmax(m[1], im[i]);
+    m[2] = absmax(m[2], re[i] + im[i]);
+  }
+}
+
+// Splits SEG consecutive values of the planes r, i and r + i with their
+// scales and stores each plane's 3 limbs as one 16-byte word each, limb
+// (p, j) at dst + (3 p + j) * limb_stride. dst is 16-byte aligned.
+__device__ __forceinline__ void store_limbs(const float (&re)[SEG],
+                                            const float (&im)[SEG],
+                                            const float (&scale)[3],
+                                            int8_t* dst, long limb_stride) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const float s = scale[p];
+    const float y = 1.0f / s;
+    uint32_t word[3][SEG / 4];
+#pragma unroll
+    for (int k = 0; k < SEG / 4; ++k) {
+      float t[3][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int v = 4 * k + i;
+        const float a = p == 0 ? re[v] : p == 1 ? im[v] : re[v] + im[v];
+        split_limbs(div_rn(a, s, y), t[0][i], t[1][i], t[2][i]);
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) word[j][k] = pack4(t[j][0], t[j][1], t[j][2], t[j][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      *reinterpret_cast<uint4*>(dst + (3 * p + j) * limb_stride) =
+          make_uint4(word[j][0], word[j][1], word[j][2], word[j][3]);
+  }
+}
+
+// row[v0 .. v0 + SEG) with zeros past w. VEC: w % 4 == 0 and row 16-byte
+// aligned, so each float4 lies wholly inside or wholly past w.
+template <bool VEC>
+__device__ __forceinline__ void load_seg(const float* __restrict__ row, int v0,
+                                         int w, float (&x)[SEG]) {
+#pragma unroll
+  for (int q = 0; q < SEG / 4; ++q) {
+    const int v = v0 + 4 * q;
+    if (VEC) {
+      const float4 f = v < w ? *reinterpret_cast<const float4*>(row + v)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      x[4 * q] = f.x;
+      x[4 * q + 1] = f.y;
+      x[4 * q + 2] = f.z;
+      x[4 * q + 3] = f.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[4 * q + i] = v + i < w ? row[v + i] : 0.0f;
+    }
+  }
 }
 
 // Per-row limb split of the planes yr, yi and yr + yi:
 //   yr, yi (rows, w) f32 -> y_limbs (3, 3, rows, kp) int8 (zero past w),
-//   y_scales (3, rows) f32. One warp per row; grid ceil(rows / 8).
-__global__ void __launch_bounds__(REQ_THREADS)
+//   y_scales (3, rows) f32.
+// Bound by bytes: rows * w * 8 read, 9 * rows * kp + 12 * rows written.
+// Thread t of a block owns segment s = t % segs (segs = kp / SEG) of row
+// t / segs, so a block packs rows_per_block whole rows and wastes few lanes
+// at any kp (34 segments at w = 520). The thread reads its 2 x 16 floats
+// once (four float4 loads each where w % 4 == 0; a warp's loads cover
+// contiguous 2 KB), keeps them in registers, takes the three maxima in that
+// pass, reduces them per row (a segmented shuffle within the warp, then one
+// shared-memory atomicMax per row and warp), and writes its 9 limb words
+// with 16-byte stores: a warp writes 512 contiguous bytes a store. The zero
+// tail up to kp is split from zeros, so it needs no branch.
+// grid ceil(rows / rows_per_block), block rows_per_block * segs rounded up
+// to a warp (at least REQ_THREADS).
+// WIDE (segs > REQ_MAX_THREADS, kp > 8192): one row a block of
+// REQ_MAX_THREADS threads, thread t owning segments t, t + blockDim.x, ...;
+// it takes their maxima in a first pass and reads them again (from L2) to
+// split them.
+template <bool VEC, bool WIDE>
+__global__ void __launch_bounds__(REQ_MAX_THREADS)
 row_requantize_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
                       int8_t* __restrict__ y_limbs, float* __restrict__ y_scales,
-                      int rows, int w, int kp) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (REQ_THREADS / 32) + warp;
-  if (row >= rows) return;
-  const long in = (long)row * w;
-  const long limb = (long)rows * kp;
-  for (int p = 0; p < 3; ++p) {
-    float amax = 0.0f;
-    for (int v = lane; v < w; v += 32)
-      amax = fmaxf(amax, fabsf(plane_value(yr, yi, p, in + v)));
+                      int rows, int w, int kp, int rows_per_block) {
+  __shared__ int row_max[3 * REQ_THREADS];  // rows_per_block <= REQ_THREADS / 2
+  const int segs = kp / SEG;
+  const int per_row = WIDE ? blockDim.x : segs;  // threads a row
+  const int passes = WIDE ? (segs + per_row - 1) / per_row : 1;
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int r = t / per_row;
+  const int row = blockIdx.x * rows_per_block + r;
+  const bool live = r < rows_per_block && row < rows;
+  for (int i = t; i < 3 * rows_per_block; i += blockDim.x) row_max[i] = 0;
+  const int v0 = (t % per_row) * SEG;
+  float re[SEG], im[SEG];
+  const long in = (long)(live ? row : 0) * w;
+  float m[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < passes; ++k) {
+    const int v = v0 + k * per_row * SEG;
+    load_seg<VEC>(yr + in, live ? v : w, w, re);
+    load_seg<VEC>(yi + in, live ? v : w, w, im);
+    plane_maxima(re, im, m);
+  }
+  // Segmented max over the warp's lanes of one row: after the loop the
+  // first lane of each row in the warp holds the max of its row's lanes.
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float scale = amax > 0.0f ? amax / (127.0f * 65536.0f) : 1.0f;
-    int8_t* out = y_limbs + p * 3 * limb + (long)row * kp;
-    for (int v = lane; v < kp; v += 32) {
-      int8_t l0 = 0, l1 = 0, l2 = 0;
-      if (v < w) split_limbs(plane_value(yr, yi, p, in + v) / scale, l0, l1, l2);
-      out[v] = l0;
-      out[limb + v] = l1;
-      out[2 * limb + v] = l2;
+  for (int off = 1; off < 32; off <<= 1) {
+    const bool same = lane + off < 32 && (t + off) / per_row == r;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const float o = __shfl_down_sync(0xffffffffu, m[p], off);
+      if (same) m[p] = absmax(m[p], o);
     }
-    if (lane == 0) y_scales[(long)p * rows + row] = scale * 65536.0f;
+  }
+  __syncthreads();  // row_max zeroed
+  if (live && (lane == 0 || (t - 1) / per_row != r)) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) atomicMax(&row_max[3 * r + p], __float_as_int(m[p]));
+  }
+  __syncthreads();
+  if (!live) return;
+  float scale[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) scale[p] = limb_scale(__int_as_float(row_max[3 * r + p]));
+  for (int k = 0; k < passes; ++k) {
+    const int v = v0 + k * per_row * SEG;
+    if (WIDE) {  // else the one segment is still in registers
+      if (v >= kp) break;
+      load_seg<VEC>(yr + in, v, w, re);
+      load_seg<VEC>(yi + in, v, w, im);
+    }
+    store_limbs(re, im, scale, y_limbs + (long)row * kp + v, (long)rows * kp);
+  }
+  if (v0 == 0) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) y_scales[(long)p * rows + row] = scale[p] * 65536.0f;
+  }
+}
+
+// The complex product as c10::complex<float> computes it on the card
+// (a.x b.x - a.y b.y, a.x b.y + a.y b.x, each contracted into one FMA by
+// nvcc), written with explicit roundings so that this file's build cannot
+// contract it otherwise.
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(__fmaf_rn(a.x, b.x, -__fmul_rn(a.y, b.y)),
+                     __fmaf_rn(a.x, b.y, __fmul_rn(a.y, b.x)));
+}
+
+// Pass-2 tasks of a window_product_limbs block: WPL_COLS columns times the
+// kp / SEG segments rounded up to groups of 4 (4 * WPL_COLS = a warp).
+__host__ __device__ __forceinline__ int wpl_tasks(int kp) {
+  return 4 * WPL_COLS * ((kp / SEG + 3) / 4);
+}
+
+// X_b[u, v] = a[ba, ar + u, ac + v] * b[br + u, bc + v] for u, v < w
+// (ba = b when a holds a batch, else 0; (ar, ac, br, bc) = starts[b]),
+// split per COLUMN v and stored transposed, as quantize_x(X):
+//   a (a_batch, ha, wa), b (hb, wb) complex64 as float2; starts (batch, 4);
+//   x_limbs (3, 3, batch, w, kp) int8, row v = column v of X_b along u,
+//   zero past w; x_scales (3, batch, w) f32.
+// Bound by bytes: the union of the windows read (8 bytes an element, once),
+// 9 * batch * w * kp limbs and 12 * batch * w scales written.
+// One block per (strip of WPL_COLS columns, b), with a thread for each of
+// the strip's (column, 16-row segment) tasks (wpl_tasks), up to
+// WPL_MAX_THREADS. Pass 1:
+// thread (column t % WPL_COLS, row lane t / WPL_COLS) forms the products of
+// its column's rows with 8-byte loads, eight neighbouring columns of one row
+// for every 8 lanes (exact-Abbe windows start at any column, so rows are
+// only 8-byte aligned), and keeps the three column maxima; the block reduces
+// them in shared memory. Pass 2 forms each task's 16 products again (from
+// L2: the block just read them), holds them in registers, splits them and
+// stores 16-byte limb words; the 4 lanes of one column in a quarter-warp
+// write 64 contiguous bytes. A window outside its operand (the callers
+// validate starts on the host) reads nothing and gets NaN scales, which
+// poison every product. grid (ceil(w / WPL_COLS), batch), block
+// min(wpl_tasks(kp), WPL_MAX_THREADS).
+__global__ void __launch_bounds__(WPL_MAX_THREADS)
+window_product_limbs_kernel(const float2* __restrict__ a,
+                            const float2* __restrict__ b,
+                            const int* __restrict__ starts,
+                            int8_t* __restrict__ x_limbs,
+                            float* __restrict__ x_scales, int batch,
+                            int a_batch, int ha, int wa, int hb, int wb, int w,
+                            int kp) {
+  __shared__ int col_max[WPL_MAX_THREADS / WPL_COLS][3][WPL_COLS];
+  __shared__ float col_scale[3][WPL_COLS];
+  const int bi = blockIdx.y;
+  const int v0 = blockIdx.x * WPL_COLS;
+  const int subs = blockDim.x / WPL_COLS;
+  const int ar = starts[4 * bi], ac = starts[4 * bi + 1];
+  const int br = starts[4 * bi + 2], bc = starts[4 * bi + 3];
+  if (ar < 0 || ac < 0 || br < 0 || bc < 0 || ar > ha - w || ac > wa - w ||
+      br > hb - w || bc > wb - w) {
+    const int p = threadIdx.x / WPL_COLS, v = v0 + threadIdx.x % WPL_COLS;
+    if (p < 3 && v < w) x_scales[((long)p * batch + bi) * w + v] = __int_as_float(0x7fc00000);
+    return;
+  }
+  const float2* pa = a + ((long)(a_batch == 1 ? 0 : bi) * ha + ar) * wa + ac + v0;
+  const float2* pb = b + (long)br * wb + bc + v0;
+  {
+    const int col = threadIdx.x % WPL_COLS;
+    const int sub = threadIdx.x / WPL_COLS;
+    float m[3] = {0.0f, 0.0f, 0.0f};
+    if (v0 + col < w) {
+#pragma unroll 4
+      for (int u = sub; u < w; u += subs) {
+        const float2 x = cmul(pa[(long)u * wa + col], pb[(long)u * wb + col]);
+        m[0] = absmax(m[0], x.x);
+        m[1] = absmax(m[1], x.y);
+        m[2] = absmax(m[2], x.x + x.y);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 3; ++p) col_max[sub][p][col] = __float_as_int(m[p]);
+  }
+  __syncthreads();
+  if (threadIdx.x < 3 * WPL_COLS) {
+    const int p = threadIdx.x / WPL_COLS, col = threadIdx.x % WPL_COLS;
+    int best = 0;
+    for (int s = 0; s < subs; ++s) best = max(best, col_max[s][p][col]);
+    const float scale = limb_scale(__int_as_float(best));
+    col_scale[p][col] = scale;
+    if (v0 + col < w) x_scales[((long)p * batch + bi) * w + v0 + col] = scale * 65536.0f;
+  }
+  __syncthreads();
+  const long limb_stride = (long)batch * w * kp;
+  const int segs = kp / SEG;
+  for (int task = threadIdx.x; task < wpl_tasks(kp); task += blockDim.x) {
+    // 4 consecutive segments of one column in 4 neighbouring lanes
+    const int col = task / 4 % WPL_COLS;
+    const int seg = task % 4 + 4 * (task / (4 * WPL_COLS));
+    if (v0 + col >= w || seg >= segs) continue;
+    const int u0 = seg * SEG;
+    float re[SEG], im[SEG];
+#pragma unroll
+    for (int i = 0; i < SEG; ++i) {
+      const int u = u0 + i;
+      const float2 x = u < w ? cmul(pa[(long)u * wa + col], pb[(long)u * wb + col])
+                             : make_float2(0.0f, 0.0f);
+      re[i] = x.x;
+      im[i] = x.y;
+    }
+    const float scale[3] = {col_scale[0][col], col_scale[1][col], col_scale[2][col]};
+    store_limbs(re, im, scale, x_limbs + ((long)bi * w + v0 + col) * kp + u0,
+                limb_stride);
   }
 }
 
@@ -603,14 +879,48 @@ int row_limb_gemm(const void* t_limbs, const void* t_scales,
       grid, s, map_t, ts, map_x, xs, o_r, o_i, batch, n, w, kp);
 }
 
+// kp must be a multiple of 32. Up to SEG * REQ_MAX_THREADS = 8192 a thread
+// keeps its one segment in registers (a 512-thread bound leaves 128
+// registers a thread; at 1024 threads the 64-register cap spilled); wider
+// rows take the WIDE kernel.
 int row_requantize(const void* yr, const void* yi, void* y_limbs,
                    void* y_scales, int rows, int w, int kp, void* stream) {
-  const int per_block = REQ_THREADS / 32;
-  row_requantize_kernel<<<(rows + per_block - 1) / per_block, REQ_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(yr), static_cast<const float*>(yi),
-      static_cast<int8_t*>(y_limbs), static_cast<float*>(y_scales), rows, w,
-      kp);
+  if (kp % 32 || kp < w) return (int)cudaErrorInvalidValue;
+  const int segs = kp / SEG;
+  const bool wide = segs > REQ_MAX_THREADS;
+  const int threads = wide              ? REQ_MAX_THREADS
+                      : segs <= REQ_THREADS ? REQ_THREADS
+                                            : (segs + 31) / 32 * 32;
+  const int per_block = wide ? 1 : threads / segs;
+  const int grid = (rows + per_block - 1) / per_block;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto r = static_cast<const float*>(yr);
+  auto i = static_cast<const float*>(yi);
+  auto l = static_cast<int8_t*>(y_limbs);
+  auto sc = static_cast<float*>(y_scales);
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(yr) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(yi) % 16 == 0;
+  auto kernel = vec ? (wide ? row_requantize_kernel<true, true>
+                            : row_requantize_kernel<true, false>)
+                    : (wide ? row_requantize_kernel<false, true>
+                            : row_requantize_kernel<false, false>);
+  kernel<<<grid, threads, 0, s>>>(r, i, l, sc, rows, w, kp, per_block);
+  return (int)cudaGetLastError();
+}
+
+int window_product_limbs(const void* a, const void* b, const void* starts,
+                         void* x_limbs, void* x_scales, int batch, int a_batch,
+                         int ha, int wa, int hb, int wb, int w, int kp,
+                         void* stream) {
+  if (kp % 32 || kp < w || w < 1 || (a_batch != 1 && a_batch != batch))
+    return (int)cudaErrorInvalidValue;
+  const int threads = wpl_tasks(kp) < WPL_MAX_THREADS ? wpl_tasks(kp) : WPL_MAX_THREADS;
+  const dim3 grid((w + WPL_COLS - 1) / WPL_COLS, batch);
+  window_product_limbs_kernel<<<grid, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(a), static_cast<const float2*>(b),
+      static_cast<const int*>(starts), static_cast<int8_t*>(x_limbs),
+      static_cast<float*>(x_scales), batch, a_batch, ha, wa, hb, wb, w, kp);
   return (int)cudaGetLastError();
 }
 

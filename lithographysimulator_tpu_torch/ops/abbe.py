@@ -31,8 +31,10 @@ from .._tensors import to_tensor
 from ..config import OpticsConfig
 from .fourier import centered_ifft2, crop_center, pad_center
 from .fraunhofer import separable_dft
-from .kernels.intensity_int8 import (column_intensity_int8, prepare_t0_limbs,
-                                     row_transform_int8)
+from .kernels.intensity_int8 import (check_window_starts, column_intensity_int8,
+                                     prepare_t0_limbs, row_limb_gemm,
+                                     row_requantize, window_product_limbs,
+                                     window_products)
 from .resize import bilinear_resize
 
 Solver = Literal["gau23", "direct"]
@@ -114,22 +116,12 @@ def _window_starts(shifts: np.ndarray, n: int, w: int, lo: int) -> np.ndarray:
     return np.stack([(-s[:, 0]) % n + r0, (-s[:, 1]) % n + c0, r0, c0], axis=1)
 
 
-def _gather_products(pupil_tiled, spectrum, starts: torch.Tensor, w: int):
-    """(B, w, w) products of pupil and spectrum windows at ``starts``
-    (B, 4): two batched gathers and one multiply per chunk."""
-    ar = torch.arange(w, device=starts.device)
-    rows = starts[:, :, None] + ar  # (B, 4, w)
-    pup = pupil_tiled[rows[:, 0, :, None], rows[:, 1, None, :]]
-    spec = spectrum[rows[:, 2, :, None], rows[:, 3, None, :]]
-    return pup * spec
-
-
 def _rolled_products(pupil_tiled, spectrum, shifts):
     """(B, n, n) stack of roll(pupil, s_b) * spectrum (torch.roll's sign)."""
     n = spectrum.shape[-1]
     starts = torch.as_tensor(_window_starts(shifts, n, n, 0),
                              device=spectrum.device)
-    return _gather_products(pupil_tiled, spectrum, starts, n)
+    return window_products(pupil_tiled[None], spectrum, starts, n)
 
 
 def _windowed_products(pupil_tiled, spectrum, shifts, w: int, lo: int):
@@ -139,7 +131,7 @@ def _windowed_products(pupil_tiled, spectrum, shifts, w: int, lo: int):
     n = spectrum.shape[-1]
     starts = torch.as_tensor(_window_starts(shifts, n, w, lo),
                              device=spectrum.device)
-    return _gather_products(pupil_tiled, spectrum, starts, w)
+    return window_products(pupil_tiled[None], spectrum, starts, w)
 
 
 @functools.lru_cache(maxsize=16)
@@ -191,16 +183,21 @@ def _intensity_windowed_3m(x, t0r, t0i, weights):
     return torch.sum(weights[:, None, None] * (er * er + ei * ei), dim=0)
 
 
-def _intensity_windowed_int8(x, t_limbs, t_scales, weights, *, fast: bool,
-                             out: torch.Tensor):
-    """Same contraction as :func:`_intensity_windowed_3m` on the int8 limb
-    kernels, added into ``out`` in place. Forward only."""
-    if x.requires_grad or weights.requires_grad:
+def _intensity_windowed_int8(a, b, starts, w: int, t_limbs, t_scales,
+                             weights, *, fast: bool, out: torch.Tensor):
+    """Same contraction as :func:`_intensity_windowed_3m` for the window
+    products X_b of ``a`` and ``b`` at ``starts`` (see
+    :func:`window_product_limbs`), on the int8 limb kernels, added into
+    ``out`` in place: four launches on the card, and X is never formed.
+    Forward only."""
+    if a.requires_grad or b.requires_grad or weights.requires_grad:
         raise NotImplementedError(
             "the int8 engine is forward-only; its f32-recompute backward "
             "arrives with optimize.py (ROADMAP.md, Queue 2: int8 VJP) - use "
             "engine='matmul' for gradients")
-    y_limbs, y_scales = row_transform_int8(x, t_limbs, t_scales, fast=fast)
+    x_limbs, x_scales = window_product_limbs(a, b, starts, w)
+    yr, yi = row_limb_gemm(x_limbs, x_scales, t_limbs, t_scales, fast=fast)
+    y_limbs, y_scales = row_requantize(yr, yi, t_limbs.shape[-1])
     return column_intensity_int8(y_limbs, y_scales, t_limbs, t_scales,
                                  weights, fast=fast, out=out)
 
@@ -277,20 +274,26 @@ def accumulate_intensity(
         t0i = torch.as_tensor(t0.imag, dtype=torch.float32, device=device)
         if engine in ("int8", "int8_fast"):
             t_limbs, t_scales = prepare_t0_limbs(t0r, t0i)
-        starts = torch.as_tensor(_window_starts(shifts, n, w_win, lo),
-                                 device=device)
+            spectrum = spectrum.contiguous()
+        one_pupil = pupil_tiled[None]  # (1, 2n, 2n): the array all windows read
+        # validated once on the host: no chunk checks them on the device
+        starts = torch.as_tensor(
+            check_window_starts(_window_starts(shifts, n, w_win, lo), w_win,
+                                pupil_tiled.shape, spectrum.shape),
+            device=device)
 
     for c in range(0, p, chunk):
         s = shifts[c : c + chunk]
         w = weights[c : c + chunk]
         if solver == "gau23" and windowed:
-            x = _gather_products(pupil_tiled, spectrum, starts[c : c + chunk],
-                                 w_win)
             if engine in ("int8", "int8_fast"):
-                _intensity_windowed_int8(x, t_limbs, t_scales, w,
-                                         fast=engine == "int8_fast", out=acc)
-            else:
-                acc = acc + _intensity_windowed_3m(x, t0r, t0i, w)
+                _intensity_windowed_int8(one_pupil, spectrum,
+                                         starts[c : c + chunk], w_win, t_limbs,
+                                         t_scales, w, fast=engine == "int8_fast",
+                                         out=acc)
+                continue
+            x = window_products(one_pupil, spectrum, starts[c : c + chunk], w_win)
+            acc = acc + _intensity_windowed_3m(x, t0r, t0i, w)
             continue
         if solver == "gau23":
             fields = _fields_gau23(pupil_tiled, spectrum, s, fft_size, engine)

@@ -44,7 +44,7 @@ from .abbe import (_intensity_windowed_int8, _postprocess_gau23,
 from .compensated import rowdot3_compensated, rowdot_compensated
 from .fourier import centered_ifft2, crop_center, pad_center
 from .fraunhofer import separable_dft
-from .kernels.intensity_int8 import prepare_t0_limbs
+from .kernels.intensity_int8 import check_window_starts, prepare_t0_limbs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,18 +227,24 @@ def socs_image(
         t_limbs, t_scales = prepare_t0_limbs(
             torch.as_tensor(t_full.real, dtype=torch.float32, device=device),
             torch.as_tensor(t_full.imag, dtype=torch.float32, device=device))
+        # each chunk's window is the whole kernel and spectrum: zero starts
+        starts = torch.as_tensor(
+            check_window_starts(np.zeros((chunk, 4), np.int32), n,
+                                kernels.shape, spectrum.shape), device=device)
+        spectrum = spectrum.contiguous()
     elif solver == "gau23" and engine == "matmul":
         t = torch.as_tensor(_zoom_dft_kernel(n, fft_size), dtype=spectrum.dtype,
                             device=device)
 
     acc = torch.zeros((n, n), dtype=torch.float32, device=device)
     for c in range(0, socs.rank, chunk):
-        prod = kernels[c:c + chunk] * spectrum
         ls = lams[c:c + chunk]
         if solver == "gau23" and engine in ("int8", "int8_fast"):
-            _intensity_windowed_int8(prod, t_limbs, t_scales, ls,
-                                     fast=engine == "int8_fast", out=acc)
+            _intensity_windowed_int8(kernels[c:c + chunk], spectrum,
+                                     starts[:len(ls)], n, t_limbs, t_scales,
+                                     ls, fast=engine == "int8_fast", out=acc)
             continue
+        prod = kernels[c:c + chunk] * spectrum
         if solver == "direct":
             fields = separable_dft(prod, config, sign=-1, dtype=spectrum.dtype)
         elif engine == "matmul":

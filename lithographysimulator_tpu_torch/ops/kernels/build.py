@@ -29,6 +29,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "row_limb_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "row_requantize": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "window_product_limbs": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
     "column_intensity": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "set_dynamic_smem": (_I,),
 }

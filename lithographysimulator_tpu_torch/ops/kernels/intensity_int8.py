@@ -13,19 +13,20 @@ that reach fp32 accuracy (~2^-24 relative to each row's max):
   S2/65536)``; ``fast`` drops the 2^-16 group (3 dots, ~1e-5 accuracy);
 * complex products use the 3M planes r, i and r+i.
 
-Three hand-written CUDA kernels (``csrc/intensity_int8.cu``, ``sm_90a``)
+Four hand-written CUDA kernels (``csrc/intensity_int8.cu``, ``sm_90a``)
 carry it on the card, each behind a wrapper with a plain PyTorch version
 beside it. The two GEMM kernels run the limb dots on Hopper's int8 tensor
-cores (``wgmma`` s8 x s8 -> s32, operands brought in by TMA);
-``row_requantize`` is a memory-bound warp-per-row pass:
+cores (``wgmma`` s8 x s8 -> s32, operands brought in by TMA); the two limb
+quantizers are memory-bound passes that read their input once:
 
-=================  ==========================================  ===========
-wrapper            computes                                    TPU kernel
-=================  ==========================================  ===========
-row_limb_gemm      ``Y_b = T0 @ X_b`` as f32 planes (yr, yi)    K2 and K3
-row_requantize     per-row limbs of yr, yi and yr + yi          (in K2/K3)
-column_intensity   ``acc += sum_b w_b |Y_b @ T0^T|^2``          K1
-=================  ==========================================  ===========
+====================  ==========================================  ==========
+wrapper               computes                                    TPU kernel
+====================  ==========================================  ==========
+window_product_limbs  column limbs of the window products X_b     (in K2/K3)
+row_limb_gemm         ``Y_b = T0 @ X_b`` as f32 planes (yr, yi)   K2 and K3
+row_requantize        per-row limbs of yr, yi and yr + yi         (in K2/K3)
+column_intensity      ``acc += sum_b w_b |Y_b @ T0^T|^2``         K1
+====================  ==========================================  ==========
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel (or raises) and adds one to :data:`LAUNCHES`. The plain
@@ -40,6 +41,7 @@ of :data:`K_ALIGN` (exact: zero limbs add nothing); scales are f32
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: contraction padding: the depth of one int8 wgmma (the kernels' TMA boxes
@@ -47,7 +49,8 @@ import torch
 K_ALIGN = 32
 
 #: kernel launches by name (wrappers count only their CUDA launches)
-LAUNCHES = {"row_limb_gemm": 0, "row_requantize": 0, "column_intensity": 0}
+LAUNCHES = {"window_product_limbs": 0, "row_limb_gemm": 0,
+            "row_requantize": 0, "column_intensity": 0}
 
 
 def reset_launch_counts() -> None:
@@ -79,7 +82,11 @@ def _split_limbs(q: torch.Tensor) -> torch.Tensor:
 
 def _quantize(a: torch.Tensor, dim: int):
     amax = a.abs().amax(dim=dim, keepdim=True)
-    scale = torch.where(amax > 0, amax / (127.0 * 65536.0),
+    # a true division, as the kernels' and jnp's: on CUDA torch turns a
+    # division by a Python number into a product with its rounded reciprocal
+    # (tests/test_torch_intensity_int8.py holds these limbs to the JAX
+    # package's quantize_rows and quantize_cols)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0 * 65536.0),
                         torch.ones_like(amax))
     return _split_limbs(a / scale), (scale * 65536.0).squeeze(dim)
 
@@ -125,6 +132,45 @@ def quantize_x(x: torch.Tensor):
     return _pad_k(limbs.transpose(0, 1).transpose(-1, -2), kp), scales
 
 
+def check_window_starts(starts, w: int, a_shape, b_shape) -> np.ndarray:
+    """Window origins (B, 4) = (a row, a col, b row, b col) validated on the
+    host, once, before upload: raises ValueError unless every (w, w) window
+    lies inside its operand (``a_shape[-2:]``, ``b_shape[-2:]``). Returns
+    them as C-contiguous int32, the layout :func:`window_product_limbs`
+    reads. The kernel itself never syncs to check."""
+    s = np.asarray(starts)
+    if s.ndim != 2 or s.shape[1] != 4 or not np.issubdtype(s.dtype, np.integer):
+        raise ValueError(f"window starts must be integer (B, 4), got "
+                         f"{s.dtype} {s.shape}")
+    hi = np.array([*a_shape[-2:], *b_shape[-2:]], np.int64) - w
+    bad = np.nonzero(((s < 0) | (s > hi)).any(axis=1))[0]
+    if w < 1 or bad.size:
+        raise ValueError(f"(w={w}, w) windows outside their operands "
+                         f"{tuple(a_shape[-2:])} and {tuple(b_shape[-2:])}: "
+                         f"starts {s[bad[:4]].tolist() if bad.size else []}")
+    return np.ascontiguousarray(s, dtype=np.int32)
+
+
+def window_products(a: torch.Tensor, b: torch.Tensor, starts: torch.Tensor,
+                    w: int) -> torch.Tensor:
+    """(B, w, w) products ``a[ba, ar:ar+w, ac:ac+w] * b[br:br+w, bc:bc+w]``
+    of the windows at ``starts`` (B, 4), with ``ba = b`` when ``a`` holds a
+    batch (a.shape[0] == B) and 0 when it holds one array: two batched
+    gathers and one multiply. When both operands are whole (w, w) arrays the
+    only window is the whole array, and the product is taken directly."""
+    batch = starts.shape[0]
+    if tuple(a.shape[-2:]) == (w, w) and tuple(b.shape) == (w, w):
+        return (a * b).expand(batch, w, w)
+    ar = torch.arange(w, device=starts.device)
+    rows = starts[:, :, None] + ar  # (B, 4, w) int64 indices
+    if a.shape[0] == 1:
+        win_a = a[0][rows[:, 0, :, None], rows[:, 1, None, :]]
+    else:
+        win_a = a[torch.arange(batch, device=starts.device)[:, None, None],
+                  rows[:, 0, :, None], rows[:, 1, None, :]]
+    return win_a * b[rows[:, 2, :, None], rows[:, 3, None, :]]
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -155,6 +201,15 @@ def row_requantize_plain(yr: torch.Tensor, yi: torch.Tensor, kp: int):
     """Plain version of :func:`row_requantize`."""
     limbs, scales = quantize_rows(_planes(yr, yi))
     return _pad_k(limbs.transpose(0, 1), kp), scales
+
+
+def window_product_limbs_plain(a: torch.Tensor, b: torch.Tensor,
+                               starts: torch.Tensor, w: int):
+    """Plain version of :func:`window_product_limbs`: the gather and
+    product, then :func:`quantize_x`. Host-side starts are validated."""
+    if starts.device.type == "cpu":
+        check_window_starts(starts.numpy(), w, a.shape, b.shape)
+    return quantize_x(window_products(a, b, starts, w))
 
 
 def column_intensity_int8_plain(y_limbs, y_scales, t_limbs, t_scales,
@@ -228,7 +283,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def row_limb_gemm(x_limbs, x_scales, t_limbs, t_scales, *, fast: bool = False):
     """``Y_b = T0 @ X_b`` from limbs: x_limbs (3, 3, B, w, kp) with scales
-    (3, B, w) from :func:`quantize_x`, t_limbs (3, 3, n, kp) with scales
+    (3, B, w) from :func:`window_product_limbs` (or :func:`quantize_x`),
+    t_limbs (3, 3, n, kp) with scales
     (3, n) from :func:`prepare_t0_limbs` -> f32 planes yr, yi (B, n, w)."""
     if not _on_cuda(x_limbs, x_scales, t_limbs, t_scales):
         return row_limb_gemm_plain(x_limbs, x_scales, t_limbs, t_scales,
@@ -265,6 +321,36 @@ def row_requantize(yr: torch.Tensor, yi: torch.Tensor, kp: int):
     _launch("row_requantize", yr.device, yr.data_ptr(), yi.data_ptr(),
             y_limbs.data_ptr(), y_scales.data_ptr(), batch * n, w, kp)
     return y_limbs, y_scales
+
+
+def window_product_limbs(a: torch.Tensor, b: torch.Tensor,
+                         starts: torch.Tensor, w: int):
+    """Column limbs of the window products ``X_b`` (:func:`window_products`)
+    without forming X: a (Ba, Ha, Wa) complex64 with Ba in {1, B}, b
+    (Hb, Wb) complex64, starts (B, 4) int32 from
+    :func:`check_window_starts` (the kernel reads out-of-range windows as
+    NaN scales; it never syncs to check) -> x_limbs (3, 3, B, w, kp) int8
+    with kp = :func:`padded_width` (w) and x_scales (3, B, w) f32, as
+    :func:`quantize_x` of the products."""
+    if not _on_cuda(a, b, starts):
+        return window_product_limbs_plain(a, b, starts, w)
+    batch = starts.shape[0]
+    a_batch, ha, wa = a.shape
+    hb, wb = b.shape
+    _check(a, "a", torch.complex64, (a_batch, ha, wa))
+    _check(b, "b", torch.complex64, (hb, wb))
+    _check(starts, "starts", torch.int32, (batch, 4))
+    if a_batch not in (1, batch):
+        raise ValueError(f"a holds {a_batch} arrays for {batch} windows")
+    if not 1 <= w <= min(ha, wa, hb, wb):
+        raise ValueError(f"w={w} must lie in [1, the operands' sides]")
+    kp = padded_width(w)
+    x_limbs = torch.empty((3, 3, batch, w, kp), dtype=torch.int8, device=a.device)
+    x_scales = torch.empty((3, batch, w), dtype=torch.float32, device=a.device)
+    _launch("window_product_limbs", a.device, a.data_ptr(), b.data_ptr(),
+            starts.data_ptr(), x_limbs.data_ptr(), x_scales.data_ptr(), batch,
+            a_batch, ha, wa, hb, wb, w, kp)
+    return x_limbs, x_scales
 
 
 def row_transform_int8(x, t_limbs, t_scales, *, fast: bool = False):

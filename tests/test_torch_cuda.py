@@ -35,38 +35,61 @@ def _deq(limbs, scales):
 
 
 def _operands(ik, dev, b, n, w):
-    """Quantized X limbs, scales and T0 limbs, scales from seed n + w."""
+    """X's limbs and scales from the plain window_product_limbs, T0's limbs
+    and scales, and the window operands (a, b, starts), from seed n + w:
+    for w < n windows of a tiled 2n x 2n array and an n x n one at odd
+    columns (8-byte aligned rows), for w = n whole arrays at zero starts."""
     rng = np.random.default_rng(n + w)
-    x = torch.as_tensor((rng.normal(size=(b, w, w)) + 1j * rng.normal(size=(b, w, w))
-                         ).astype(np.complex64), device=dev)
+
+    def cplx(*shape):
+        return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+    if w == n:
+        a, bb, starts = cplx(b, n, n), cplx(n, n), np.zeros((b, 4), np.int64)
+    else:
+        a, bb = cplx(1, 2 * n, 2 * n), cplx(n, n)
+        starts = np.stack([rng.integers(0, 2 * n - w + 1, b),
+                           rng.integers(0, (2 * n - w) // 2, b) * 2 + 1,
+                           rng.integers(0, n - w + 1, b),
+                           rng.integers(0, (n - w) // 2, b) * 2 + 1], axis=1)
+    starts = ik.check_window_starts(starts, w, a.shape, bb.shape)
+    window = (torch.as_tensor(a, device=dev), torch.as_tensor(bb, device=dev),
+              torch.as_tensor(starts, device=dev), w)
     t0 = np.exp(1j * rng.normal(size=(n, w))).astype(np.complex64)
     t_limbs, t_scales = ik.prepare_t0_limbs(torch.as_tensor(t0.real, device=dev),
                                             torch.as_tensor(t0.imag, device=dev))
-    return (*ik.quantize_x(x), t_limbs, t_scales), rng
+    return (*ik.window_product_limbs_plain(*window), t_limbs, t_scales), window, rng
+
+
+def _assert_same_limbs(kernel, plain):
+    """Limbs and scales equal bit for bit (scales as bits: NaN == NaN)."""
+    assert torch.equal(kernel[0], plain[0])
+    assert torch.equal(kernel[1].view(torch.int32), plain[1].view(torch.int32))
 
 
 # Shapes at every edge of the 64 x 64 output tiles and the 64-byte K stages:
 # B = 1; n and w neither multiples of 64 nor of the stage (kp = 160, 288,
-# where the last stage is half full); a tiny ragged one; and the SOCS apply's
-# (4, 1024, 1024).
+# where the last stage is half full); a tiny ragged one; odd w (37: the
+# quantizers' scalar loads); and the SOCS apply's (4, 1024, 1024).
 @pytest.mark.cuda
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("b,n,w", [(3, 96, 40), (2, 256, 136), (1, 200, 136),
-                                   (2, 328, 264), (4, 1024, 1024)])
+                                   (2, 328, 264), (2, 64, 37), (4, 1024, 1024)])
 def test_kernels_match_plain(b, n, w, fast):
     from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
 
     dev = _cuda()
-    args, rng = _operands(ik, dev, b, n, w)
+    args, window, rng = _operands(ik, dev, b, n, w)
     t_limbs, t_scales = args[2], args[3]
+    kp = t_limbs.shape[-1]
     before = dict(ik.LAUNCHES)
+    # the two quantizers give the plain versions' limbs and scales bit for bit
+    _assert_same_limbs(ik.window_product_limbs(*window), args[:2])
     yr, yi = ik.row_limb_gemm(*args, fast=fast)
     pr, pi = ik.row_limb_gemm_plain(*args, fast=fast)
     assert _nrms(torch.complex(yr, yi).cpu(), torch.complex(pr, pi).cpu()) < TOL
-    kp = t_limbs.shape[-1]
-    assert _nrms(_deq(*ik.row_requantize(pr, pi, kp)),
-                 _deq(*ik.row_requantize_plain(pr, pi, kp))) < TOL
     y_limbs, y_scales = ik.row_requantize_plain(pr, pi, kp)
+    _assert_same_limbs(ik.row_requantize(pr, pi, kp), (y_limbs, y_scales))
     weights = torch.as_tensor(rng.random(b).astype(np.float32), device=dev)
     cargs = (y_limbs, y_scales, t_limbs, t_scales, weights)
     img = ik.column_intensity_int8(*cargs, fast=fast)
@@ -74,6 +97,40 @@ def test_kernels_match_plain(b, n, w, fast):
     assert _nrms(img.cpu(), ref.cpu()) < TOL
     torch.cuda.synchronize()
     assert all(ik.LAUNCHES[k] == before[k] + 1 for k in before)
+
+
+# Rows wider than one thread a segment (kp > 16 * 512 = 8192): the kernel
+# loops over a row's segments; 16-byte loads (w % 4 == 0) and scalar ones.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,w", [(3, 8200), (2, 9001), (1, 20000)])
+def test_row_requantize_wide_rows(rows, w):
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    rng = np.random.default_rng(w)
+    yr, yi = (torch.as_tensor(rng.normal(size=(1, rows, w)).astype(np.float32),
+                              device=dev) for _ in range(2))
+    kp = ik.padded_width(w)
+    _assert_same_limbs(ik.row_requantize(yr, yi, kp),
+                       ik.row_requantize_plain(yr, yi, kp))
+
+
+@pytest.mark.cuda
+def test_window_outside_its_operand_gives_nan_scales():
+    """The kernel never syncs to check starts (the host does, once): a
+    window past its operand reads nothing and poisons its scales."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    a = torch.ones((1, 128, 128), dtype=torch.complex64, device=dev)
+    b = torch.ones((64, 64), dtype=torch.complex64, device=dev)
+    starts = torch.tensor([[0, 0, 0, 0], [0, 0, 30, 0]], dtype=torch.int32, device=dev)
+    _, scales = ik.window_product_limbs(a, b, starts, 40)
+    scales = scales.cpu()
+    # products 1 + 0i: planes r and r + i have max 1, plane i is all zero
+    torch.testing.assert_close(scales[:, 0], torch.tensor(
+        [[1.0 / 127.0], [65536.0], [1.0 / 127.0]]).expand(3, 40))
+    assert scales[:, 1].isnan().all()
 
 
 @pytest.mark.cuda
@@ -85,7 +142,7 @@ def test_refused_launch_raises():
     from lithographysimulator_tpu_torch.ops.kernels.build import load_library
 
     dev = _cuda()
-    args, rng = _operands(ik, dev, 2, 96, 40)
+    args, _, rng = _operands(ik, dev, 2, 96, 40)
     y_limbs, y_scales = ik.row_requantize_plain(
         *ik.row_limb_gemm_plain(*args), args[2].shape[-1])
     weights = torch.as_tensor(rng.random(2).astype(np.float32), device=dev)

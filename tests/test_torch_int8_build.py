@@ -8,11 +8,13 @@ import importlib.util
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from lithographysimulator_tpu_torch.ops.kernels import build  # noqa: E402
+from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -91,3 +93,31 @@ def test_ptxas_spills_and_sass_counts():
 def test_bound(name, shape, fast, ms, by):
     got, got_by = _chip_smoke().bound(name, *shape, fast)
     assert got == pytest.approx(ms, rel=1e-3) and got_by == by
+
+
+def test_window_bound_counts_each_element_once():
+    """window_product_limbs reads the union of its windows: overlapping
+    windows of one shared array count once, a batch's arrays apart."""
+    cs = _chip_smoke()
+    starts = np.array([[0, 0, 0, 0], [1, 3, 2, 2]])
+    # a: 16 + 16 - 3 shared elements; b: 16 + 16 - 4
+    assert cs.window_read_bytes(starts, 4, (1, 8, 8), (6, 6)) == 8 * (29 + 28)
+    assert cs.window_read_bytes(starts, 4, (2, 8, 8), (6, 6)) == 8 * (32 + 28)
+    ms, by = cs.bound("window_product_limbs", 2, 8, 4, 32, False, 456)
+    # + 16 bytes of starts a window; 9 limb planes and 3 f32 scales written
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (456 + 32 + 9 * 2 * 4 * 32 + 4 * 3 * 2 * 4) / 3.35e12)
+
+
+@pytest.mark.parametrize("batch,n,w", [(4, 96, 40), (2, 328, 264), (2, 48, 48)])
+def test_window_operands(batch, n, w):
+    """phase 2 and 7 operands: exact-like windows at odd columns of a tiled
+    2n x 2n array, SOCS-like whole arrays at zero starts; all valid."""
+    a, b, starts = _chip_smoke().window_operands(np.random.default_rng(0), batch, n, w)
+    ik.check_window_starts(starts, w, a.shape, b.shape)
+    assert b.shape == (n, n) and starts.shape == (batch, 4)
+    if w < n:
+        assert a.shape == (1, 2 * n, 2 * n)
+        assert (starts[:, 1] % 2 == 1).all() and (starts[:, 3] % 2 == 1).all()
+    else:
+        assert a.shape == (batch, n, n) and not starts.any()

@@ -162,11 +162,124 @@ def test_window_intensity_plain_matches_jax_reference():
     assert normalized_rms(ours, exact) < TOL
 
 
+def _window_case(kind, seed=9):
+    """Operands of window_product_limbs and their numpy (B, w, w) products:
+    ``exact`` is the tiled 2n x 2n pupil (Ba = 1) with starts from
+    abbe._window_starts at n = 64, w = 40; ``batched`` the same starts on a
+    batch of 2n x 2n arrays (Ba = B); ``socs`` a batch of (n, n) kernels at
+    zero starts, w = n = 48. Column 35 of b is zero, so every exact window
+    holds an all-zero column of X."""
+    from lithographysimulator_tpu_torch.ops import abbe as pa
+
+    rng = np.random.default_rng(seed)
+    b_count, n = 3, (48 if kind == "socs" else 64)
+
+    def cplx(*shape):
+        return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+    if kind == "socs":
+        w, a, starts = n, cplx(b_count, n, n), np.zeros((b_count, 4), np.int64)
+    else:
+        w = 40
+        pupil = cplx(n, n)
+        a = (np.tile(pupil, (2, 2))[None] if kind == "exact"
+             else cplx(b_count, 2 * n, 2 * n))
+        shifts = rng.integers(-(n // 4 - 2), n // 4 - 1, size=(b_count, 2))
+        starts = pa._window_starts(shifts, n, w, n // 4 - 1)
+    b = cplx(n, n)
+    if kind != "socs":
+        b[:, 35] = 0.0
+    ba = np.zeros(b_count, int) if a.shape[0] == 1 else np.arange(b_count)
+    x = np.stack([a[ba[k], r0:r0 + w, c0:c0 + w] * b[r1:r1 + w, c1:c1 + w]
+                  for k, (r0, c0, r1, c1) in enumerate(starts)])
+    return a, b, starts, w, x
+
+
+@pytest.mark.parametrize("kind", ["exact", "batched", "socs"])
+def test_window_product_limbs_plain_matches_jax_quantize_cols(kind):
+    """The X-side limbs: the port's gather-product-quantize (what the wrapper
+    runs on CPU tensors) against the JAX package's quantize_cols of the
+    same products, plane by plane (r, i, r + i). The products themselves
+    match numpy's to f32 rounding (torch may fuse the complex multiply), so
+    both quantizers get the port's products."""
+    a, b, starts, w, x_np = _window_case(kind)
+    checked = pk.check_window_starts(starts, w, a.shape, b.shape)
+    args = (torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(checked), w)
+    x = pk.window_products(*args).numpy()
+    np.testing.assert_allclose(x, x_np, rtol=1e-6, atol=1e-6 * np.abs(x_np).max())
+    limbs, scales = pk.window_product_limbs(*args)
+    kp = pk.padded_width(w)
+    assert tuple(limbs.shape) == (3, 3, len(x), w, kp) and limbs.dtype == torch.int8
+    assert tuple(scales.shape) == (3, len(x), w)
+    assert not limbs[..., w:].any()  # zero limbs past w
+    ours = np.swapaxes(_deq_port(limbs, scales, w), -1, -2)  # (3, B, u, v)
+    planes = np.stack([x.real, x.imag, x.real + x.imag]).astype(np.float64)
+    col_max = np.abs(planes).max(axis=-2, keepdims=True)
+    for p, plane in enumerate((x.real, x.imag, x.real + x.imag)):
+        j_limbs, j_scale = jk.quantize_cols(jnp.asarray(plane))
+        np.testing.assert_allclose(scales[p].numpy(), np.asarray(j_scale), rtol=1.2e-7)
+        theirs = _deq_jax(np.moveaxis(np.asarray(j_limbs), -1, -2),
+                          np.asarray(j_scale))  # (B, v, u)
+        assert (np.abs(ours[p] - np.swapaxes(theirs, -1, -2))
+                <= col_max[p] * 2.0 ** -23).all()
+    assert (np.abs(ours - planes) <= col_max * 2.0 ** -22).all()
+    if kind != "socs":  # the zero column: scale 1 (2^16 folded), zero limbs
+        zero = np.argwhere(~x.any(axis=1))
+        assert len(zero) == len(x)
+        for k, v in zero:
+            assert (scales[:, k, v] == 65536.0).all() and not limbs[:, :, k, v].any()
+
+
+def test_row_requantize_plain_matches_jax_quantize_rows():
+    """Per-row limbs of yr, yi and yr + yi, zero past w, against the JAX
+    package's quantize_rows plane by plane; an all-zero row gets scale 1."""
+    rng = np.random.default_rng(10)
+    b, n, w = 2, 24, 40
+    yr = (rng.normal(size=(b, n, w)) * 10.0 ** rng.integers(-3, 4, (b, n, 1))
+          ).astype(np.float32)
+    yi = rng.normal(size=(b, n, w)).astype(np.float32)
+    yr[1, 3] = yi[1, 3] = 0.0
+    kp = pk.padded_width(w)
+    limbs, scales = pk.row_requantize(torch.as_tensor(yr), torch.as_tensor(yi), kp)
+    assert tuple(limbs.shape) == (3, 3, b, n, kp) and tuple(scales.shape) == (3, b, n)
+    assert not limbs[..., w:].any()
+    assert (scales[:, 1, 3] == 65536.0).all() and not limbs[:, :, 1, 3].any()
+    ours = _deq_port(limbs, scales, w)
+    for p, plane in enumerate((yr, yi, yr + yi)):
+        j_limbs, j_scale = jk.quantize_rows(jnp.asarray(plane))
+        np.testing.assert_allclose(scales[p].numpy(), np.asarray(j_scale), rtol=1.2e-7)
+        row_max = np.abs(plane).max(axis=-1, keepdims=True)
+        assert (np.abs(ours[p] - _deq_jax(j_limbs, j_scale)) <= row_max * 2.0 ** -23).all()
+        assert (np.abs(ours[p] - plane) <= row_max * 2.0 ** -22).all()
+
+
+@pytest.mark.parametrize("bad", [(-1, 0, 0, 0), (0, 89, 0, 0), (0, 0, 25, 0),
+                                 (0, 0, 0, -3)])
+def test_window_starts_outside_the_operands_raise(bad):
+    """Starts are checked once on the host: a window past either operand's
+    edge raises, in the check and in the plain path of the wrapper."""
+    a_shape, b_shape, w = (1, 128, 128), (64, 64), 40
+    good = np.array([[0, 88, 24, 0], [3, 5, 7, 11]])
+    out = pk.check_window_starts(good, w, a_shape, b_shape)
+    assert out.dtype == np.int32 and out.flags.c_contiguous
+    starts = np.concatenate([good, [bad]])
+    with pytest.raises(ValueError, match="outside"):
+        pk.check_window_starts(starts, w, a_shape, b_shape)
+    with pytest.raises(ValueError, match="outside"):
+        pk.window_product_limbs(torch.zeros(a_shape, dtype=torch.complex64),
+                                torch.zeros(b_shape, dtype=torch.complex64),
+                                torch.as_tensor(starts, dtype=torch.int32), w)
+    with pytest.raises(ValueError, match="integer"):
+        pk.check_window_starts(good[:, :3], w, a_shape, b_shape)
+
+
 def test_cpu_tensors_run_the_plain_versions():
     """CPU inputs never touch the CUDA library and never count a launch."""
     pk.reset_launch_counts()
     x, t0 = _operands(1, 32, 24, 8)
     t_limbs, t_scales = _port_t(t0)
+    pk.window_product_limbs(torch.as_tensor(x), torch.as_tensor(x[0]),
+                            torch.zeros((1, 4), dtype=torch.int32), 24)
     y_limbs, y_scales = pk.row_transform_int8(torch.as_tensor(x), t_limbs, t_scales)
     pk.column_intensity_int8(y_limbs, y_scales, t_limbs, t_scales, torch.ones(1))
     assert set(pk.LAUNCHES.values()) == {0}

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Times versions of the port's int8 GEMM kernels against each other on one
-CUDA card, in one process. Run from the repository root:
+"""Times versions of the port's int8 kernels against each other on one CUDA
+card, in one process. Run from the repository root:
 
     PYTHONPATH=. python3 tools/bench_int8_kernels.py A.cu B.cu [...]
 
 Each source is a version of lithographysimulator_tpu_torch/csrc/
-intensity_int8.cu with the same C interface (for example the parent
-commit's, unpacked with git archive into a directory that git ignores). All
-are built in parallel with the package's nvcc flags. At each main-path shape
-they are timed in turns, first to last and back (A, B, B, A), so drift of
-the card shows as a gap between the two turns of one source. A turn times
-row_limb_gemm and column_intensity, 3-limb, launched through ctypes: the
-median of 5 CUDA-event samples of 10 back-to-back launches after a warm-up,
-the same inputs for every source, each result held to its plain PyTorch
-version (<= 1e-6 normalized RMS). It prints each time with its share of the
-int8 bound (3 planes x 6 limb dots x 2*M*N*K operations at 1,979 TOP/s);
+intensity_int8.cu with the same C interface for the kernels it has (for
+example the parent commit's, unpacked with git archive into a directory
+that git ignores). All are built in parallel with the package's nvcc flags.
+At each main-path shape they are timed in turns, first to last and back
+(A, B, B, A), so drift of the card shows as a gap between the two turns of
+one source. A turn times row_limb_gemm, column_intensity and row_requantize,
+3-limb, and window_product_limbs where the source has it, launched through
+ctypes: device time by chip_smoke.time_ms (a CUDA graph of 10 back-to-back
+launches, replayed), the same inputs for every source, each result held to
+its plain PyTorch version (<= 1e-6 normalized RMS, dequantized for the two
+quantizers). Once per shape the chain that window_product_limbs replaces
+(the gather and product, then quantize_x) is timed in the same process.
+It prints each time with its share of the kernel's bound (chip_smoke.bound);
 the last line holds the same as JSON. It exits with an error where there is
 no CUDA device.
 """
@@ -35,6 +38,10 @@ SHAPES = ((4, 1024, 520), (4, 2048, 1032), (4, 1024, 1024), (4, 2048, 2048))
 TOL = 1e-6
 
 
+KERNELS = ("window_product_limbs", "row_limb_gemm", "row_requantize",
+           "column_intensity")
+
+
 def build_all(sources: list[Path], build) -> list[ctypes.CDLL]:
     out_dir = build.BUILD_DIR / "bench"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -51,10 +58,11 @@ def build_all(sources: list[Path], build) -> list[ctypes.CDLL]:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {src}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for name in ("row_limb_gemm", "column_intensity"):
-            fn = getattr(lib, name)
-            fn.argtypes = build.SIGNATURES[name]
-            fn.restype = ctypes.c_int
+        for name in KERNELS:
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = build.SIGNATURES[name]
+                fn.restype = ctypes.c_int
         libs.append(lib)
     return libs
 
@@ -68,7 +76,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_int8_kernels.py: needs a CUDA device")
-    from chip_smoke import bound, nrms, nvidia_smi, time_ms
+    from chip_smoke import (bound, dequant, nrms, nvidia_smi, time_ms,
+                            window_operands, window_read_bytes)
     from lithographysimulator_tpu_torch.ops.kernels import build
     from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
 
@@ -78,62 +87,95 @@ def main() -> int:
     labels = [str(s) for s in args.sources]
     turns = list(range(len(libs))) + list(reversed(range(len(libs))))
     dev = torch.device("cuda")
-    stream = torch.cuda.current_stream().cuda_stream
     results = []
+
+    def stream():  # the capturing stream while time_ms records its graph
+        return torch.cuda.current_stream().cuda_stream
+
     for batch, n, w in SHAPES:
         rng = np.random.default_rng(n + w)
-        x = torch.as_tensor((rng.normal(size=(batch, w, w))
-                             + 1j * rng.normal(size=(batch, w, w))).astype(np.complex64),
-                            device=dev)
+        a_np, b_np, starts_np = window_operands(rng, batch, n, w)
+        starts_np = ik.check_window_starts(starts_np, w, a_np.shape, b_np.shape)
+        a, b = torch.as_tensor(a_np, device=dev), torch.as_tensor(b_np, device=dev)
+        starts = torch.as_tensor(starts_np, device=dev)
         t0 = np.exp(1j * rng.normal(size=(n, w))).astype(np.complex64)
         tl, ts = ik.prepare_t0_limbs(torch.as_tensor(t0.real, device=dev),
                                      torch.as_tensor(t0.imag, device=dev))
-        xl, xs = ik.quantize_x(x)
         kp = tl.shape[-1]
+        xl, xs = ik.window_product_limbs_plain(a, b, starts, w)
         yr_p, yi_p = ik.row_limb_gemm_plain(xl, xs, tl, ts)
         yl, ys = ik.row_requantize_plain(yr_p, yi_p, kp)
         wts = torch.as_tensor(rng.random(batch).astype(np.float32), device=dev)
         img_p = ik.column_intensity_int8_plain(yl, ys, tl, ts, wts)
-        y_p = torch.complex(yr_p, yi_p).cpu().numpy()
-        yr = torch.empty((batch, n, w), device=dev)
-        yi = torch.empty_like(yr)
-        out = torch.zeros((n, n), device=dev)
-        b_row = bound("row_limb_gemm", batch, n, w, kp, False)[0]
-        b_col = bound("column_intensity", batch, n, w, kp, False)[0]
+        refs = {"window_product_limbs": dequant(xl, xs),
+                "row_limb_gemm": torch.complex(yr_p, yi_p).cpu().numpy(),
+                "row_requantize": dequant(yl, ys),
+                "column_intensity": img_p.cpu().numpy()}
+        x_bytes = window_read_bytes(starts_np, w, a_np.shape, b_np.shape)
+        bounds = {k: bound(k, batch, n, w, kp, False, x_bytes)[0] for k in KERNELS}
+        chain_ms = time_ms(torch, lambda: ik.window_product_limbs_plain(
+            a, b, starts, w))
+        print(f"({batch}, {n}, {w}) gather + product + quantize_x chain (plain "
+              f"torch): {chain_ms:.4f} ms", flush=True)
+        results.append({"source": "plain torch chain", "shape": [batch, n, w],
+                        "window_product_limbs_ms": chain_ms})
+        out = {"window_product_limbs": (torch.empty_like(xl), torch.empty_like(xs)),
+               "row_limb_gemm": (torch.empty_like(yr_p), torch.empty_like(yi_p)),
+               "row_requantize": (torch.empty_like(yl), torch.empty_like(ys)),
+               "column_intensity": (torch.zeros((n, n), device=dev),)}
+        calls = {
+            "window_product_limbs": lambda lib: lib.window_product_limbs(
+                a.data_ptr(), b.data_ptr(), starts.data_ptr(),
+                out["window_product_limbs"][0].data_ptr(),
+                out["window_product_limbs"][1].data_ptr(), batch, a.shape[0],
+                a.shape[1], a.shape[2], b.shape[0], b.shape[1], w, kp, stream()),
+            "row_limb_gemm": lambda lib: lib.row_limb_gemm(
+                tl.data_ptr(), ts.data_ptr(), xl.data_ptr(), xs.data_ptr(),
+                out["row_limb_gemm"][0].data_ptr(), out["row_limb_gemm"][1].data_ptr(),
+                batch, n, w, kp, 0, stream()),
+            "row_requantize": lambda lib: lib.row_requantize(
+                yr_p.data_ptr(), yi_p.data_ptr(), out["row_requantize"][0].data_ptr(),
+                out["row_requantize"][1].data_ptr(), batch * n, w, kp, stream()),
+            "column_intensity": lambda lib: lib.column_intensity(
+                yl.data_ptr(), ys.data_ptr(), tl.data_ptr(), ts.data_ptr(),
+                wts.data_ptr(), out["column_intensity"][0].data_ptr(), batch, n,
+                kp, 0, stream()),
+        }
+
+        def result(name):
+            o = out[name]
+            if name == "row_limb_gemm":
+                return torch.complex(*o).cpu().numpy()
+            if name == "column_intensity":
+                return o[0].cpu().numpy()
+            return dequant(*o)
+
         for turn, i in enumerate(turns):
             lib = libs[i]
+            r = {"source": labels[i], "turn": turn, "shape": [batch, n, w]}
+            line = []
+            for name in KERNELS:
+                if getattr(lib, name, None) is None:
+                    continue
 
-            def row():
-                err = lib.row_limb_gemm(tl.data_ptr(), ts.data_ptr(), xl.data_ptr(),
-                                        xs.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                                        batch, n, w, kp, 0, stream)
-                assert err == 0, f"row_limb_gemm launch error {err}"
+                def call(name=name):
+                    err = calls[name](lib)
+                    assert err == 0, f"{name} launch error {err}"
 
-            def col():
-                err = lib.column_intensity(yl.data_ptr(), ys.data_ptr(), tl.data_ptr(),
-                                           ts.data_ptr(), wts.data_ptr(), out.data_ptr(),
-                                           batch, n, kp, 0, stream)
-                assert err == 0, f"column_intensity launch error {err}"
-
-            row()
-            out.zero_()
-            col()
-            torch.cuda.synchronize()
-            e_row = nrms(torch.complex(yr, yi).cpu().numpy(), y_p)
-            e_col = nrms(out.cpu().numpy(), img_p.cpu().numpy())
-            if not (e_row <= TOL and e_col <= TOL):
-                raise SystemExit(f"{labels[i]} at {(batch, n, w)}: error row "
-                                 f"{e_row:.3e}, column {e_col:.3e} > {TOL}")
-            ms_row, ms_col = time_ms(torch, row), time_ms(torch, col)
-            r = {"source": labels[i], "turn": turn, "shape": [batch, n, w],
-                 "row_limb_gemm_ms": ms_row, "column_intensity_ms": ms_col,
-                 "row_bound_ms": b_row, "column_bound_ms": b_col,
-                 "row_nrms": e_row, "column_nrms": e_col}
+                out["column_intensity"][0].zero_()
+                call()
+                torch.cuda.synchronize()
+                e = nrms(result(name), refs[name])
+                if not e <= TOL:
+                    raise SystemExit(f"{labels[i]} at {(batch, n, w)}: {name} "
+                                     f"error {e:.3e} > {TOL}")
+                ms = time_ms(torch, call)
+                r[f"{name}_ms"], r[f"{name}_nrms"] = ms, e
+                r[f"{name}_bound_ms"] = bounds[name]
+                line.append(f"{name} {ms:.4f} ms ({100 * bounds[name] / ms:.1f}% "
+                            f"of bound, nRMS {e:.1e})")
             results.append(r)
-            print(f"({batch}, {n}, {w}) {labels[i]}: row_limb_gemm {ms_row:.4f} ms "
-                  f"({100 * b_row / ms_row:.1f}% of bound), column_intensity "
-                  f"{ms_col:.4f} ms ({100 * b_col / ms_col:.1f}%), nRMS "
-                  f"{e_row:.1e} / {e_col:.1e}", flush=True)
+            print(f"({batch}, {n}, {w}) {labels[i]}: " + "; ".join(line), flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                       "results": results}))
     return 0

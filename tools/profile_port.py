@@ -2,20 +2,26 @@
 """Kernel-time breakdown of the PyTorch/CUDA port (lithographysimulator_tpu_torch)
 on one CUDA card, from torch.profiler. Run from the repository root:
 
-    PYTHONPATH=. python3 tools/profile_port.py [--chunks 512] [--rank 256]
+    PYTHONPATH=. python3 tools/profile_port.py [--chunks 512] [--rank 256] [--exact-only]
 
 1. 1024^2 exact Abbe (lines/spaces 64/128 px, quasar sigma 0.4/0.8, as in
    chip_smoke.py phase 4): the first ``chunks`` chunks of 4 source points
    through abbe_image_points on the int8 and the f32 matmul engines;
 2. 1024^2 SOCS, the same mask and source: one rank-``rank``
    randomized_socs build (Rayleigh-Ritz, power_iters=2, as simulate uses)
-   and one socs_image apply on each of the int8, matmul and fft engines.
+   and one socs_image apply on each of the int8, matmul and fft engines
+   (skipped with --exact-only).
 
-Each run is traced after one untraced warm-up run. For each it prints the
-wall clock (host clock around a synchronized run), the kernel time (the sum
-of the CUDA device events), the busy share (kernel time over wall) and the
-kernel time by group and by name; the last line holds the same as JSON. It
-exits with an error where there is no CUDA device.
+Each run is traced after one untraced warm-up run and one untraced timed
+run. For each it prints the untraced and the traced wall clock (host clock
+around a synchronized run), the kernel time (the sum
+of the CUDA device events), the busy share (kernel time over wall), the
+kernel time and the count of device events (kernel launches, copies and
+memsets) by group and by name, and for the int8 runs the device events a
+chunk; the last line holds the same as JSON. It exits with an error where
+there is no CUDA device. With PYTHONPATH set to another checkout (say the
+parent commit's, unpacked with git archive), it profiles that checkout's
+package: run two checkouts in turns to compare them.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from collections import defaultdict
 import numpy as np
 
 GROUPS = (
+    ("window_product_limbs", ("window_product_limbs_kernel",)),
     ("column_intensity", ("column_intensity_kernel",)),
     ("row_limb_gemm", ("row_limb_gemm_kernel",)),
     ("row_requantize", ("row_requantize_kernel",)),
@@ -47,18 +54,24 @@ def group_of(name: str) -> str:
 
 def trace(torch, fn) -> dict:
     """Wall, kernel time, busy share and kernel time by group and name (ms)
-    of one traced call of ``fn`` after one untraced warm-up call."""
+    of one traced call of ``fn`` after one untraced warm-up call, and the
+    wall of one untraced call between them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    untraced = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     by_name = defaultdict(float)
+    count = defaultdict(int)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -66,29 +79,49 @@ def trace(torch, fn) -> dict:
         if us is None:
             us = e.self_cuda_time_total
         by_name[e.key] += us / 1e3
+        count[e.key] += e.count
     by_group = defaultdict(float)
+    count_group = defaultdict(int)
     for name, ms in by_name.items():
         by_group[group_of(name)] += ms
+        count_group[group_of(name)] += count[name]
     kernel = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall, "kernel_ms": kernel, "busy": kernel / wall,
+    return {"untraced_wall_ms": untraced, "wall_ms": wall, "kernel_ms": kernel,
+            "busy": kernel / wall,
+            "events": sum(count.values()),
             "by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
-            "top_kernels": [[name[:90], ms] for name, ms in top]}
+            "events_by_group": dict(count_group),
+            "top_kernels": [[name[:90], ms, count[name]] for name, ms in top]}
 
 
-def show(title: str, r: dict) -> None:
-    print(f"{title}: wall {r['wall_ms']:.2f} ms, kernels {r['kernel_ms']:.2f} ms, "
-          f"busy {100 * r['busy']:.1f}%", flush=True)
+INT8 = ("window_product_limbs", "row_limb_gemm", "row_requantize",
+        "column_intensity")
+
+
+def show(title: str, r: dict, chunks: int | None = None) -> None:
+    print(f"{title}: untraced wall {r['untraced_wall_ms']:.2f} ms; traced: wall "
+          f"{r['wall_ms']:.2f} ms, kernels {r['kernel_ms']:.2f} ms, busy "
+          f"{100 * r['busy']:.1f}%, {r['events']} device events", flush=True)
     for group, ms in r["by_group"].items():
-        print(f"  {group}: {ms:.2f} ms ({100 * ms / r['wall_ms']:.1f}% of wall)")
-    for name, ms in r["top_kernels"]:
-        print(f"    {ms:9.3f} ms  {name}")
+        print(f"  {group}: {ms:.2f} ms ({100 * ms / r['wall_ms']:.1f}% of wall), "
+              f"{r['events_by_group'][group]} events")
+    for name, ms, count in r["top_kernels"]:
+        print(f"    {ms:9.3f} ms  {count:6d}x  {name}")
+    if chunks:
+        per = {g: r["events_by_group"].get(g, 0) / chunks for g in INT8}
+        rest = r["events"] - sum(r["events_by_group"].get(g, 0) for g in INT8)
+        r["int8_events_per_chunk"] = per
+        r["other_events"] = rest
+        print(f"  per chunk of {chunks}: {per}; other device events in the "
+              f"whole call: {rest}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunks", type=int, default=512)
     ap.add_argument("--rank", type=int, default=256)
+    ap.add_argument("--exact-only", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -117,8 +150,14 @@ def main() -> int:
     for engine in ("int8", "matmul"):
         r = trace(torch, lambda: lt.abbe_image_points(
             spectrum, pupil, shifts, weights, cfg, device="cuda", engine=engine))
-        show(f"1024^2 exact Abbe, {args.chunks} chunks of 4, engine {engine}", r)
+        show(f"1024^2 exact Abbe, {args.chunks} chunks of 4, engine {engine}", r,
+             args.chunks if engine == "int8" else None)
+        print(f"  untraced: {4 * args.chunks / r['untraced_wall_ms'] * 1e3:.1f} "
+              f"points/s", flush=True)
         results[f"exact_{engine}"] = r
+    if args.exact_only:
+        print(json.dumps(results))
+        return 0
     socs_holder = {}
 
     def build():
@@ -130,7 +169,8 @@ def main() -> int:
     for engine in ("int8", "matmul", "fft"):
         r = trace(torch, lambda: lt.socs_image(spectrum, socs_holder["socs"], cfg,
                                                engine=engine))
-        show(f"1024^2 SOCS apply, rank {args.rank}, engine {engine}", r)
+        show(f"1024^2 SOCS apply, rank {args.rank}, engine {engine}", r,
+             -(-args.rank // 4) if engine == "int8" else None)
         results[f"socs_apply_{engine}"] = r
     print(json.dumps(results))
     return 0
