@@ -65,8 +65,41 @@ The SOCS (Hopkins) path, its launches counted apart from phases 3-5:
     the standard build's; the build times and memory peaks of both;
 12. as phase 6, for phases 8-11.
 
-Run time on one H100 is about 2 minutes, most of it phase 4's int8 run,
-phase 5's host oracle and phase 8's exact image.
+Vector (Jones-pupil), chromatic and through-focus imaging with scanner
+perturbations, at phase 4's configuration, their launches counted apart
+from phases 3-11:
+
+13. simulate(polarization='unpolarized') over all 49,400 points on the
+    int8 engine (six component passes), with its wall clock and points/s;
+    on every 41st point the int8 and f32 matmul engines of
+    vector_abbe_image, <= 1e-6; the same pair for x polarization at
+    hyper-NA immersion (NA 1.35, water 1.437);
+14. vector SOCS at rank 256: the bench.py form (randomized_socs_vector,
+    power_iters=1, with the setup's channel rotation, then socs_image) with
+    build, apply, channel count and the build's memory peak; its int8
+    apply within 1e-6 of a complex128 apply of the same kernels and its
+    image within the bound of its dropped trace; then
+    simulate(solver='socs', polarization='unpolarized', socs_rank=256)
+    cold and on its cached kernels, within its reported bound; each
+    image's error against phase 13's exact image is printed;
+15. chromatic, LaserSpectrum(bandwidth_pm=0.3, samples=5): the exact int8
+    blend over all points, and on every 41st point int8 (simulate) against
+    an f32 matmul blend, <= 1e-6; randomized_socs_chromatic at rank 256
+    (power_iters=1, the channel rotation) and simulate(solver='socs',
+    chromatic=..., socs_rank=256): each image within its bound and within
+    5e-4 of the exact blend;
+16. through_focus_images over 3 planes (-60, 0, 60 nm) on every 41st
+    point, each plane within 1e-6 of simulate() with that plane's
+    aberrations; through_focus_socs over the same planes at rank 96;
+    simulate(solver='socs', socs_rank=256, perturb=ImagePerturbation(
+    msd_x_nm=5, msd_y_nm=2, flare_tis=0.02)) on cached kernels, within
+    1e-6 of a host float64 application of the same perturbation to the
+    unperturbed image from the card;
+17. as phase 6, for phases 13-16.
+
+Run time on one H100 is about 3 minutes, most of it phase 4's int8 run,
+phase 5's host oracle, phase 8's exact image and phases 13 and 15's exact
+images.
 
 Kernel, plain and library times are device times: medians of 5 CUDA-event
 samples of one CUDA-graph replay of 10 back-to-back calls each, after a
@@ -83,9 +116,9 @@ window_product_limbs the bytes read are the union of this run's windows.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is nvidia-smi's name and power limit, and the one before that lists each
 kernel with its launches, error, times and bound (launches on phases 3-5,
-and socs_launches on phases 8-11; ms, library_ms and bound_ms at the
-exact-Abbe shape, socs_ms, socs_library_ms and socs_bound_ms at
-(4, 1024, 1024)).
+socs_launches on phases 8-11 and vector_launches on phases 13-16; ms,
+library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
+and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 """
 
 from __future__ import annotations
@@ -129,6 +162,10 @@ TOL_SOCS_ORACLE = 1e-5
 TOL_LEAN = 2e-4
 INT8_BUDGET_S = 120.0
 SOCS_RANK = 256
+SUBSET_K = 41  # every k-th source point for the f32 references of 13-16
+TOL_CHROMATIC_SOCS = 5e-4  # tests/test_chromatic.py:141-150
+FOCUS_PLANES = (-60.0, 0.0, 60.0)
+FOCUS_RANK = 96
 
 
 def log(msg: str) -> None:
@@ -682,6 +719,233 @@ def phase_socs_lean(torch, lt) -> None:
           TOL_LEAN)
 
 
+def _vector_pair(torch, lt, cfg, spectrum, pupil, src, polarization: str,
+                 tag: str) -> None:
+    """vector_abbe_image on every SUBSET_K-th point, int8 against the f32
+    matmul engine (TF32 off): <= 1e-6, with both wall clocks."""
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+
+    sp = source_points(_subset(src, source_points(src), SUBSET_K))
+    args = (spectrum, pupil, *_padded(sp, 4), cfg)
+    imgs = {}
+    for engine in ("int8", "matmul"):
+        img, t = _timed(torch, lambda: lt.vector_abbe_image(
+            *args, device="cuda", polarization=polarization, engine=engine))
+        imgs[engine] = check_image(img, cfg.n)
+        log(f"  {tag}, every {SUBSET_K}th point ({sp.live_count}), {engine}: "
+            f"{t:.3f} s, {sp.live_count / t:.1f} source points/s")
+    check(f"{tag} vector int8 vs f32 matmul", nrms(imgs["int8"], imgs["matmul"]),
+          TOL_MATMUL)
+
+
+def phase_vector_exact(torch, lt) -> np.ndarray:
+    """Phase 13: the exact vector image at 1024^2, int8 against f32.
+    Returns the unpolarized image for phase 14."""
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    live = source_points(src).live_count
+    res, t = _timed(torch, lambda: lt.simulate(
+        mask, src, polarization="unpolarized", device="cuda"))
+    img = check_image(res.image, n)
+    log(f"[phase 13] 1024^2 vector exact, unpolarized, int8 (simulate): "
+        f"{live} points x 6 component passes in {t:.3f} s, {live / t:.1f} "
+        f"source points/s ({6 * live / t:.1f} component-points/s)")
+    _vector_pair(torch, lt, cfg, res.spectrum, res.pupil, src, "unpolarized",
+                 "NA 0.7 unpolarized")
+    hyper = lt.OpticsConfig(pixel_number=n, na=1.35, immersion_index=1.437)
+    hmask = lt.lines_and_spaces(hyper, line_width_px=n // 16, pitch_px=n // 8,
+                                device="cuda")
+    hsrc = lt.LightSource(hyper, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    _vector_pair(torch, lt, hyper, lt.mask_spectrum(hmask.geometry, hyper),
+                 lt.pupil_function(np.zeros(1, np.float32), hyper, device="cuda"),
+                 hsrc, "x", "NA 1.35 water x-polarized")
+    return img
+
+
+def _build_peak(torch, fn):
+    """(result, seconds, GB) of a build: the peak of device memory above
+    what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, t = _timed(torch, fn)
+    return out, t, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def phase_vector_socs(torch, lt, exact_vec) -> None:
+    """Phase 14: vector SOCS at rank 256, bench.py form and simulate()."""
+    from lithographysimulator_tpu_torch.ops.hopkins import (
+        dedup_polarization_factors, tcc_total_trace)
+    from lithographysimulator_tpu_torch.simulate import _channel_rotation_cached
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    rot = _channel_rotation_cached(cfg, "unpolarized", True, None, "cuda")
+    comps = len(dedup_polarization_factors(cfg, "unpolarized"))
+    channels = comps if rot is None else rot.shape[2]
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device="cuda")
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    socs, t_build, peak = _build_peak(torch, lambda: lt.randomized_socs_vector(
+        pupil, src, cfg, rank=SOCS_RANK, polarization="unpolarized",
+        power_iters=1, channel_rotation=rot))
+    img_t, t_apply = _timed(torch, lambda: lt.socs_image(spectrum, socs, cfg))
+    img = check_image(img_t, n)
+    log(f"[phase 14] 1024^2 vector SOCS rank {SOCS_RANK}, bench.py form "
+        f"(power_iters=1): {comps} deduped components, {channels} channels; "
+        f"cold build {t_build:.3f} s, peak {peak:.3f} GB above the base; "
+        f"apply {t_apply:.4f} s")
+    check("vector SOCS int8 apply vs complex128 apply, same kernels",
+          nrms(img, _socs_image_f64(torch, spectrum, socs, cfg)), TOL_MATMUL)
+    trace = tcc_total_trace(pupil, src, polarization="unpolarized", config=cfg)
+    bound = lt.socs_image_nrms_bound(socs, spectrum, img_t, trace=trace)
+    err = nrms(img, exact_vec)
+    log(f"  bench form vs phase 13's exact image: {err:.3e} (expected class "
+        f"1e-3), energy {float(socs.eigenvalues.sum(dtype=torch.float64)) / trace:.6f}")
+    check("vector SOCS (bench form) vs exact, against its trace bound", err, bound)
+    del socs
+    res, t_cold = _timed(torch, lambda: lt.simulate(
+        mask, src, solver="socs", polarization="unpolarized",
+        socs_rank=SOCS_RANK, device="cuda"))
+    warm, t_cached = _timed(torch, lambda: lt.simulate(
+        mask, src, solver="socs", polarization="unpolarized",
+        socs_rank=SOCS_RANK, device="cuda"))
+    sim = check_image(res.image, n)
+    log(f"  simulate(solver='socs', polarization='unpolarized'): cold "
+        f"{t_cold:.3f} s, on cached kernels {t_cached:.4f} s")
+    log(f"  report: {json.dumps(res.report)}")
+    check("vector SOCS cached rerun vs cold run",
+          nrms(check_image(warm.image, n), sim), TOL_MATMUL)
+    err = nrms(sim, exact_vec)
+    log(f"  simulate vs phase 13's exact image: {err:.3e} (expected class 1e-3)")
+    check("vector SOCS (simulate) vs exact, against its reported bound", err,
+          res.report["socs_image_nrms_bound"])
+
+
+def phase_chromatic(torch, lt) -> None:
+    """Phase 15: chromatic exact blend and polychromatic SOCS at 1024^2."""
+    from lithographysimulator_tpu_torch.ops.abbe import (abbe_image_points,
+                                                         source_points)
+    from lithographysimulator_tpu_torch.ops.hopkins import tcc_total_trace
+    from lithographysimulator_tpu_torch.simulate import _channel_rotation_cached
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    spec = lt.LaserSpectrum(bandwidth_pm=0.3, samples=5)
+    live = source_points(src).live_count
+    res, t = _timed(torch, lambda: lt.simulate(mask, src, chromatic=spec,
+                                                device="cuda"))
+    exact = check_image(res.image, n)
+    log(f"[phase 15] 1024^2 chromatic exact ({res.report['chromatic']}), int8 "
+        f"(simulate): {live} points x {spec.samples} planes in {t:.3f} s, "
+        f"{live / t:.1f} source points/s")
+    sub = _subset(src, source_points(src), SUBSET_K)
+    sp = source_points(sub)
+    int8, t8 = _timed(torch, lambda: lt.simulate(mask, sub, chromatic=spec,
+                                                  device="cuda").image)
+    stack, q = lt.chromatic_aberrations(np.zeros(1, np.float32), spec)
+
+    def f32_blend():
+        return sum(float(qf) * abbe_image_points(
+            res.spectrum, lt.pupil_function(ab, cfg, device="cuda"),
+            *_padded(sp, 4), cfg, device="cuda", engine="matmul")
+            for ab, qf in zip(stack, q))
+
+    f32, t32 = _timed(torch, f32_blend)
+    log(f"  every {SUBSET_K}th point ({sp.live_count}): int8 {t8:.3f} s, "
+        f"f32 matmul {t32:.3f} s")
+    check("chromatic exact int8 vs f32 matmul blend",
+          nrms(check_image(int8, n), check_image(f32, n)), TOL_MATMUL)
+
+    rot = _channel_rotation_cached(cfg, None, True, spec, "cuda")
+    channels = spec.samples if rot is None else rot.shape[2]
+    socs, t_build, peak = _build_peak(torch, lambda: lt.randomized_socs_chromatic(
+        np.zeros(1, np.float32), src, cfg, spectrum=spec, rank=SOCS_RANK,
+        power_iters=1, channel_rotation=rot, device="cuda"))
+    img_t, t_apply = _timed(torch, lambda: lt.socs_image(res.spectrum, socs, cfg))
+    img = check_image(img_t, n)
+    log(f"  randomized_socs_chromatic rank {SOCS_RANK} (power_iters=1): "
+        f"{spec.samples} planes, {channels} channels; cold build {t_build:.3f} s, "
+        f"peak {peak:.3f} GB above the base; apply {t_apply:.4f} s")
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device="cuda")
+    bound = lt.socs_image_nrms_bound(socs, res.spectrum, img_t,
+                                     trace=tcc_total_trace(pupil, src))
+    err = nrms(img, exact)
+    check("chromatic SOCS (bench form) vs exact blend, against its trace bound",
+          err, bound)
+    check("chromatic SOCS (bench form) vs exact blend", err, TOL_CHROMATIC_SOCS)
+    del socs
+    sim, t_sim = _timed(torch, lambda: lt.simulate(
+        mask, src, solver="socs", chromatic=spec, socs_rank=SOCS_RANK,
+        device="cuda"))
+    log(f"  simulate(solver='socs', chromatic=...): cold {t_sim:.3f} s, "
+        f"report {json.dumps(sim.report)}")
+    err = nrms(check_image(sim.image, n), exact)
+    check("chromatic SOCS (simulate) vs exact blend, against its reported bound",
+          err, sim.report["socs_image_nrms_bound"])
+    check("chromatic SOCS (simulate) vs exact blend", err, TOL_CHROMATIC_SOCS)
+
+
+def _perturb_f64(img: np.ndarray, p, pixel_size: float) -> np.ndarray:
+    """The stage blur and flare of ImagePerturbation in float64 NumPy."""
+    freqs = np.fft.fftfreq(img.shape[-1], d=pixel_size)
+
+    def blur(x, sx, sy):
+        t = np.exp(-2.0 * np.pi ** 2 * (sx ** 2 * freqs[None, :] ** 2
+                                        + sy ** 2 * freqs[:, None] ** 2))
+        return np.real(np.fft.ifft2(np.fft.fft2(x) * t))
+
+    img = np.asarray(img, np.float64)
+    if p.msd_x_nm > 0 or p.msd_y_nm > 0:
+        img = blur(img, p.msd_x_nm, p.msd_y_nm)
+    if p.flare_tis > 0:
+        background = (blur(img, p.flare_kernel_nm, p.flare_kernel_nm)
+                      if p.flare_kernel_nm > 0 else img.mean())
+        img = (1.0 - p.flare_tis) * img + p.flare_tis * background
+    return img
+
+
+def phase_focus_perturb(torch, lt) -> None:
+    """Phase 16: through-focus stacks and the perturbed SOCS image."""
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+    from lithographysimulator_tpu_torch.ops.focus import through_focus_socs
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    sub = _subset(src, source_points(src), SUBSET_K)
+    sp = source_points(sub)
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    stack = lt.focus_stack_aberrations(np.zeros(1, np.float32), FOCUS_PLANES)
+    planes, t = _timed(torch, lambda: lt.through_focus_images(
+        spectrum, stack, *_padded(sp, 4), cfg, device="cuda"))
+    log(f"[phase 16] through_focus_images, {len(FOCUS_PLANES)} planes x "
+        f"{sp.live_count} points: {t:.3f} s")
+    for f, ab in enumerate(stack):
+        ref = lt.simulate(mask, sub, ab, device="cuda").image
+        check(f"focus plane {FOCUS_PLANES[f]:+.0f} nm vs simulate",
+              nrms(check_image(planes[f], n), check_image(ref, n)), TOL_MATMUL)
+    socs_planes, t = _timed(torch, lambda: through_focus_socs(
+        spectrum, np.zeros(1, np.float32), FOCUS_PLANES, src, cfg,
+        rank=FOCUS_RANK))
+    for f in range(len(FOCUS_PLANES)):
+        check_image(socs_planes[f], n)
+    log(f"  through_focus_socs, {len(FOCUS_PLANES)} planes at rank {FOCUS_RANK} "
+        f"(one build and one apply a plane): {t:.3f} s")
+    perturb = lt.ImagePerturbation(msd_x_nm=5.0, msd_y_nm=2.0, flare_tis=0.02)
+    clean = lt.simulate(mask, src, solver="socs", socs_rank=SOCS_RANK,
+                        device="cuda")
+    res, t = _timed(torch, lambda: lt.simulate(
+        mask, src, solver="socs", socs_rank=SOCS_RANK, perturb=perturb,
+        device="cuda"))
+    log(f"  simulate(solver='socs', perturb=...) on cached kernels: {t:.4f} s, "
+        f"{res.report['perturbation']}")
+    check("perturbed SOCS image vs float64 host perturbation of the card image",
+          nrms(check_image(res.image, n),
+               _perturb_f64(clean.image.cpu().numpy(), perturb, cfg.pixel_size)),
+          TOL_MATMUL)
+
+
 def _launched(ik, phases: str) -> dict:
     """The launch counts since the last reset: every kernel of the path ran,
     and one window_product_limbs launch fed each row_limb_gemm launch."""
@@ -738,11 +1002,20 @@ def main() -> int:
     log("[phase 12]")
     socs_launches = _launched(ik, "8-11")
 
+    ik.reset_launch_counts()  # count only the vector/chromatic/focus paths below
+    exact_vec = phase_vector_exact(torch, lt)
+    phase_vector_socs(torch, lt, exact_vec)
+    phase_chromatic(torch, lt)
+    phase_focus_perturb(torch, lt)
+    log("[phase 17]")
+    vector_launches = _launched(ik, "13-16")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
          "launches": launches[k], **stats[k],
          "socs_launches": socs_launches[k],
-         **{f"socs_{key}": v for key, v in socs_stats[k].items()}}
+         **{f"socs_{key}": v for key, v in socs_stats[k].items()},
+         "vector_launches": vector_launches[k]}
         for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Carry the JAX package's imaging state over to the port.
 
 This system has no weights: an optics config, a mask, a source map and an
-aberration vector are its parameters, and a SOCS kernel set is the state a
-build leaves. Source maps and aberration vectors cross as numpy arrays
-(``np.asarray(x)`` of either package's value), which every port entry point
-takes; the config, the mask and a kernel set need the helpers here.
-Nothing here imports jax.
+aberration vector are its parameters (with, for vector, chromatic and
+perturbed imaging, a laser spectrum and an image perturbation), and a SOCS
+kernel set is the state a build leaves. Source maps and aberration vectors
+cross as numpy arrays (``np.asarray(x)`` of either package's value), which
+every port entry point takes; the config, the mask, the spectrum, the
+perturbation and a kernel set need the helpers here. Nothing here imports
+jax.
 """
 
 from __future__ import annotations
@@ -16,16 +18,32 @@ import numpy as np
 
 import torch
 
-from .config import OpticsConfig
+from .config import LaserSpectrum, OpticsConfig
 from .models.mask import Mask, from_array
 from .ops.hopkins import SOCSKernels
+from .ops.perturb import ImagePerturbation
+
+
+def _same_fields(cls, obj):
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
 
 
 def config_from_jax(cfg) -> OpticsConfig:
     """Port :class:`OpticsConfig` with the same field values as ``cfg`` (a
     ``lithographysimulator_tpu.OpticsConfig`` or any object with them)."""
-    return OpticsConfig(**{f.name: getattr(cfg, f.name)
-                           for f in dataclasses.fields(OpticsConfig)})
+    return _same_fields(OpticsConfig, cfg)
+
+
+def spectrum_from_jax(spectrum) -> LaserSpectrum:
+    """Port :class:`LaserSpectrum` with the same fields as ``spectrum`` (a
+    ``lithographysimulator_tpu.LaserSpectrum`` or any object with them)."""
+    return _same_fields(LaserSpectrum, spectrum)
+
+
+def perturbation_from_jax(perturb) -> ImagePerturbation:
+    """Port :class:`..ops.perturb.ImagePerturbation` with the same fields as
+    ``perturb`` (the JAX package's, or any object with them)."""
+    return _same_fields(ImagePerturbation, perturb)
 
 
 def mask_from_numpy(geometry, config, *, device) -> Mask:

@@ -267,6 +267,10 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if t.is_conj() or t.is_neg():
+        # a lazy view: the kernel would read the memory, not the values
+        raise ValueError(f"{name} is a lazy conjugate or negative view; "
+                         "pass .resolve_conj() / .resolve_neg() of it")
 
 
 def _launch(name: str, device: torch.device, *args) -> None:

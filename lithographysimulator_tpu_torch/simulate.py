@@ -1,16 +1,19 @@
 """High-level one-call simulation pipeline.
 
-Port of ``lithographysimulator_tpu/simulate.py`` for scalar, monochromatic,
-thin-mask imaging: the exact Abbe solvers (``gau23`` and ``direct``) and the
-SOCS (Hopkins) fast path (``socs``), for one mask (:func:`simulate`) or a
-batch under one optical setup (:func:`simulate_batch`), returning the aerial
-image and the same run report. Options outside this slice raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Port of ``lithographysimulator_tpu/simulate.py`` for thin-mask imaging: the
+exact Abbe solvers (``gau23`` and ``direct``) and the SOCS (Hopkins) fast
+path (``socs``), scalar or vector (Jones pupil), monochromatic or
+polychromatic (finite laser bandwidth), with scanner perturbations applied
+to the image, for one mask (:func:`simulate`) or a batch under one optical
+setup (:func:`simulate_batch`), returning the aerial image and the same run
+report. ``mask3d`` raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Literal
 
@@ -22,9 +25,16 @@ from .config import OpticsConfig
 from .models.mask import Mask
 from .models.pupil import pupil_function
 from .ops.abbe import _pad_points, abbe_image_points, source_points
+from .ops.focus import chromatic_aberrations
 from .ops.fraunhofer import mask_spectrum
-from .ops.hopkins import (SOCSKernels, lean_auto, randomized_socs,
-                          socs_image, socs_image_nrms_bound, tcc_total_trace)
+from .ops.hopkins import (SOCSKernels, _field_power, channel_gram,
+                          chromatic_component_stack, lean_auto,
+                          randomized_socs, randomized_socs_chromatic,
+                          randomized_socs_vector, rotation_from_gram,
+                          socs_image, socs_image_nrms_bound,
+                          vector_component_stack, vector_pupil_power)
+from .ops.perturb import apply_perturbation
+from .ops.vector import vector_abbe_image
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,21 +46,20 @@ class SimulationResult:
     report: dict
 
 
-_NOT_PORTED = {
-    "polarization": "Queue 1 item 9 (vector imaging)",
-    "chromatic": "Queue 1 item 9 (chromatic imaging)",
-    "perturb": "Queue 1 item 9 (perturbations)",
-    "mask3d": "Queue 1 item 10 (mask-3D)",
-}
-
-
-def _check_options(solver, **options) -> None:
+def _check_options(solver, mask3d) -> None:
     if solver not in ("gau23", "direct", "socs"):
         raise ValueError(f"unknown solver {solver!r}")
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}")
+    if mask3d is not None:
+        raise NotImplementedError("mask3d is not ported yet: ROADMAP.md "
+                                  "Queue 1 item 10 (mask-3D)")
+
+
+def _polarization_key(polarization):
+    """A list or array Jones vector as a tuple of complex: hashable, so it
+    keys the build caches, and printed as the JAX package prints it."""
+    if isinstance(polarization, (list, np.ndarray)):
+        return tuple(complex(v) for v in polarization)
+    return polarization
 
 
 def _host_inputs(source_map, aberrations):
@@ -64,12 +73,101 @@ def _host_inputs(source_map, aberrations):
     return np.asarray(source_map), np.asarray(aberrations, np.float32)
 
 
+def _exact_image(spectrum, aberrations, shifts, weights, config, *, device,
+                 solver, chunk, normalize, max_abs_shift, polarization=None,
+                 apodize=True, chromatic=None) -> torch.Tensor:
+    """One exact-Abbe aerial image (scalar or vector); with ``chromatic``
+    the spectrum-weighted sum over the focus planes of the
+    :class:`..config.LaserSpectrum`, one plane's imaging state live at a
+    time. Shared by the single and batch pipelines."""
+
+    def one(ab):
+        pupil = pupil_function(ab, config, device=device)
+        kw = dict(device=device, solver=solver, chunk=chunk,
+                  normalize=normalize, max_abs_shift=max_abs_shift)
+        if polarization is None:
+            return abbe_image_points(spectrum, pupil, shifts, weights, config,
+                                     **kw)
+        return vector_abbe_image(spectrum, pupil, shifts, weights, config,
+                                 polarization=polarization, apodize=apodize,
+                                 **kw)
+
+    if chromatic is None:
+        return one(aberrations)
+    stack_ab, q_f = chromatic_aberrations(aberrations, chromatic)
+    image = None
+    for ab, q in zip(stack_ab, q_f):
+        part = float(q) * one(ab)
+        image = part if image is None else image + part
+    return image
+
+
+@functools.lru_cache(maxsize=32)
+def _channel_rotation_cached(config: OpticsConfig, polarization=None,
+                             apodize: bool = True, chromatic=None,
+                             device: str = "cpu"):
+    """Principal-channel rotation of the (config, polarization, spectrum)
+    component stack, or None when compression would not shrink it. The
+    channel Gram does not see phase-only aberrations, so the rotation at
+    zero aberrations serves every build of that setup: computed once per
+    (config, polarization, apodize, chromatic, device), the Gram on the
+    device in complex128 and its ``eigh`` on the host in float64."""
+    if polarization is None and chromatic is None:
+        return None
+    zeros = np.zeros((5,), np.float32)
+    if chromatic is not None:
+        comps, q = chromatic_component_stack(
+            zeros, config, spectrum=chromatic, polarization=polarization,
+            apodize=apodize, device=device)
+    else:
+        comps, q = vector_component_stack(
+            pupil_function(zeros, config, device=device), config,
+            polarization=polarization, apodize=apodize)
+    s_pair = channel_gram(comps, q)
+    rot, _captured = rotation_from_gram(s_pair, tol=config.channel_tol)
+    if rot.shape[2] >= s_pair.shape[1]:
+        return None
+    return rot
+
+
+def _socs_build(config, rank: int, aberrations, src, pupil, *, polarization,
+                apodize, chromatic, rot, power_iters: int = 2,
+                init_basis=None, return_basis: bool = False, lean="auto"):
+    """One kernel build of the setup: the scalar source-side build (``lean``
+    as :func:`..ops.hopkins.randomized_socs`; a basis needs the standard
+    build), or the vector / polychromatic summed-TCC build with the channel
+    rotation."""
+    kw = dict(rank=rank, power_iters=power_iters, init_basis=init_basis,
+              return_basis=return_basis)
+    if chromatic is not None:
+        return randomized_socs_chromatic(
+            aberrations, src, config, spectrum=chromatic,
+            polarization=polarization, apodize=apodize, channel_rotation=rot,
+            device=pupil.device, **kw)
+    if polarization is None:
+        return randomized_socs(pupil, src, config,
+                               lean=False if return_basis else lean, **kw)
+    return randomized_socs_vector(pupil, src, config,
+                                  polarization=polarization, apodize=apodize,
+                                  channel_rotation=rot, **kw)
+
+
+def _pupil_power(pupil, config, polarization, apodize) -> float:
+    """r0 of trace(T) = w_sum * r0: sum |P|^2, or the vector component
+    power. A polychromatic r0 is the base pupil's: the spectral weights sum
+    to 1 and the defocus phases have unit modulus."""
+    if polarization is None:
+        return _field_power(pupil)
+    return vector_pupil_power(pupil, config, polarization=polarization,
+                              apodize=apodize)
+
+
 # Host-side cache of SOCS builds keyed on the concrete optics inputs: the
 # rank-doubling auto loop runs on the host, and a kernel build must never
-# be paid twice for the same (config, source, aberrations, rank, device).
-# The kernels stay on their device, so the cache is bounded in bytes as well
-# as in entries (the oldest go first): 16 kernel sets of rank 256 at 2048^2
-# would hold 137 GB.
+# be paid twice for the same (config, source, aberrations, rank,
+# polarization, apodize, spectrum, device). The kernels stay on their
+# device, so the cache is bounded in bytes as well as in entries (the
+# oldest go first): 16 kernel sets of rank 256 at 2048^2 would hold 137 GB.
 _SOCS_BUILD_CACHE: dict = {}
 _SOCS_BUILD_CACHE_MAX = 16
 _SOCS_BUILD_CACHE_BYTES = 16e9
@@ -81,10 +179,12 @@ _AUTO_ENERGY_TARGET = 0.999
 
 def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
                          aberrations: np.ndarray, rank: int | str, *, device,
-                         tolerance: float | None = None, geometry=None,
-                         chunk: int = 4):
-    """Returns ``(socs, pupil, energy, bound)`` for a scalar build on
-    ``device``. ``rank='auto'`` grows the rank from 32 by doubling until
+                         polarization=None, apodize: bool = True,
+                         chromatic=None, tolerance: float | None = None,
+                         geometry=None, chunk: int = 4):
+    """Returns ``(socs, pupil, energy, bound)`` for a build on ``device``
+    (scalar, vector with ``polarization``, polychromatic with
+    ``chromatic``). ``rank='auto'`` grows the rank from 32 by doubling until
     the kept eigenvalues capture 99.9% of the trace or, with
     ``tolerance``, until :func:`..ops.hopkins.socs_image_nrms_bound` of
     the mask ``geometry`` is <= tolerance (its apply uses the caller's
@@ -100,7 +200,8 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
     geo = (None if tolerance is None
            else geometry.detach().cpu().numpy() if isinstance(geometry, torch.Tensor)
            else np.asarray(geometry))
-    key = (config, src_np.tobytes(), aberrations.tobytes(), rank, tolerance,
+    key = (config, src_np.tobytes(), aberrations.tobytes(), rank, polarization,
+           apodize, chromatic, tolerance,
            None if geo is None else geo.tobytes(),
            chunk if tolerance is not None else None, str(device))
     hit = _SOCS_BUILD_CACHE.get(key)
@@ -108,7 +209,18 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
         return hit
     pupil = pupil_function(aberrations, config, device=device)
     src = to_tensor(src_np, device=device, dtype=torch.float32)
-    trace = tcc_total_trace(pupil, src_np)
+    scalar = polarization is None and chromatic is None
+    trace = (float(src_np.sum(dtype=np.float64))
+             * _pupil_power(pupil, config, polarization, apodize))
+    # aberration-independent channel rotation, shared by every doubling
+    rot = _channel_rotation_cached(config, polarization, apodize, chromatic,
+                                   str(device))
+    channel_k = None if rot is None else int(rot.shape[2])
+
+    def build(r, **kw):
+        return _socs_build(config, r, aberrations, src, pupil,
+                           polarization=polarization, apodize=apodize,
+                           chromatic=chromatic, rot=rot, **kw)
 
     def energy_of(socs):
         kept = float(socs.eigenvalues.sum(dtype=torch.float64))
@@ -121,31 +233,41 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
 
         def bound_of(socs):
             image = socs_image(spectrum, socs, config, chunk=chunk)
+            if not scalar:
+                # R5, reproduced on purpose: for vector and chromatic
+                # kernels the JAX package reports the unrefined sup bound
+                # (simulate.py:889-894 passes pupil=None), so the port
+                # reports the same class.
+                return socs_image_nrms_bound(socs, spectrum, image, trace=trace)
             return socs_image_nrms_bound(
                 socs, spectrum, image, trace=trace, pupil=pupil,
                 source_map=src, config=config)
 
     if rank == "auto":
         # Grow the rank until the energy target (or tolerance) is met.
-        # rank(TCC) <= #live source points, so never past that. Each
-        # doubling warm-starts from the previous rank's Ritz basis with
-        # power_iters=1; the basis is kept only where the standard-memory
-        # build fits the device (the lean build has no basis).
-        max_rank = max(1, min(_AUTO_RANK_MAX, int((src_np > 0).sum())))
+        # rank(T) <= #components x #live source points (#channels when the
+        # stack compresses), so never past that. Each doubling warm-starts
+        # from the previous rank's Ritz basis with power_iters=1; the basis
+        # is kept only where the standard-memory build fits the device (the
+        # lean scalar build has no basis).
+        n_comp = 1 if polarization is None else 3
+        if chromatic is not None:
+            n_comp *= chromatic.samples
+        if channel_k is not None:
+            n_comp = channel_k
+        max_rank = max(1, min(_AUTO_RANK_MAX, n_comp * int((src_np > 0).sum())))
         r = min(_AUTO_RANK_START, max_rank)
         basis = None
         while True:
             keep_basis = (r < max_rank
                           and not lean_auto(2 * r + 16, config.n, device=device))
             if basis is not None:
-                socs, basis = randomized_socs(
-                    pupil, src, config, rank=r, power_iters=1,
-                    init_basis=basis, return_basis=True, lean=False)
+                socs, basis = build(r, power_iters=1, init_basis=basis,
+                                    return_basis=True)
             elif keep_basis:
-                socs, basis = randomized_socs(pupil, src, config, rank=r,
-                                              return_basis=True, lean=False)
+                socs, basis = build(r, return_basis=True)
             else:
-                socs = randomized_socs(pupil, src, config, rank=r)
+                socs = build(r)
             energy = energy_of(socs)
             if tolerance is not None:
                 bound = bound_of(socs)
@@ -158,7 +280,7 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
             if not keep_basis:
                 basis = None
     else:
-        socs = randomized_socs(pupil, src, config, rank=int(rank))
+        socs = build(int(rank))
         energy = energy_of(socs)
     hit = (socs, pupil, energy, bound)
     _SOCS_BUILD_CACHE[key] = hit
@@ -194,6 +316,7 @@ def simulate(
     socs_rank: int | str = "auto",
     socs_tolerance: float | None = None,
     polarization=None,
+    apodize: bool = True,
     chromatic=None,
     perturb=None,
     mask3d=None,
@@ -204,16 +327,27 @@ def simulate(
     returns: the device is synchronized before the wall clock is read.
 
     ``solver='socs'`` runs the Hopkins eigenkernel fast path: the kernel
-    set is built once per (config, source, aberrations, rank, device) and
-    cached, then applied with :func:`..ops.hopkins.socs_image` (the int8
-    kernels on CUDA). ``socs_rank='auto'`` (default) grows the rank to 99.9%
-    captured TCC energy; an int pins it. ``socs_tolerance`` (with
-    ``socs_rank='auto'``) grows it instead until the image-error bound
+    set is built once per (config, source, aberrations, rank, polarization,
+    apodize, spectrum, device) and cached, then applied with
+    :func:`..ops.hopkins.socs_image` (the int8 kernels on CUDA).
+    ``socs_rank='auto'`` (default) grows the rank to 99.9% captured TCC
+    energy; an int pins it. ``socs_tolerance`` (with ``socs_rank='auto'``)
+    grows it instead until the image-error bound
     :func:`..ops.hopkins.socs_image_nrms_bound` meets the tolerance. Every
     SOCS run reports ``socs_rank``, ``socs_energy_captured`` and that bound
-    as ``socs_image_nrms_bound``."""
-    _check_options(solver, polarization=polarization, chromatic=chromatic,
-                   perturb=perturb, mask3d=mask3d)
+    as ``socs_image_nrms_bound``.
+
+    ``polarization`` (None = scalar): 'unpolarized', 'x', 'y' or a Jones
+    2-vector switches to the vector Jones-pupil engine
+    (:mod:`.ops.vector`), or with ``solver='socs'`` to the vector kernel
+    build; ``apodize`` adds the 1/sqrt(cos theta) obliquity factor.
+    ``chromatic`` (a :class:`..config.LaserSpectrum`) makes the image the
+    spectrum-weighted sum over the chromatic focus planes: a loop over
+    planes on the exact solvers, one polychromatic kernel set on
+    ``solver='socs'``; it composes with ``polarization``. ``perturb`` (an
+    :class:`..ops.perturb.ImagePerturbation`) applies stage blur and flare
+    to the image last, on every solver."""
+    _check_options(solver, mask3d)
     if socs_tolerance is not None and (solver != "socs" or socs_rank != "auto"):
         raise ValueError("socs_tolerance needs solver='socs' with "
                          "socs_rank='auto' (a pinned rank cannot honor a "
@@ -223,6 +357,7 @@ def simulate(
     t0 = time.perf_counter()
 
     src_np, aberrations = _host_inputs(source_map, aberrations)
+    polarization = _polarization_key(polarization)
     pts = source_points(src_np)
     geometry = mask.geometry.to(device)
     socs_report = {}
@@ -230,14 +365,27 @@ def simulate(
         w_sum = float(src_np.sum(dtype=np.float64))
         socs, pupil, energy, bound = _socs_kernels_cached(
             config, src_np, aberrations, socs_rank, device=device,
+            polarization=polarization, apodize=apodize, chromatic=chromatic,
             tolerance=socs_tolerance, geometry=mask.geometry, chunk=chunk)
         image, spectrum = _socs_apply(geometry, socs, config, chunk=chunk,
                                       normalize=normalize, w_sum=w_sum)
         if bound is None:
             # the accuracy class of the run, from pieces already in hand
-            bound = socs_image_nrms_bound(
-                socs, spectrum, image, pupil=pupil, source_map=src_np,
-                config=config, total_weight=w_sum if normalize else None)
+            total_weight = w_sum if normalize else None
+            if polarization is None and chromatic is None:
+                bound = socs_image_nrms_bound(
+                    socs, spectrum, image, pupil=pupil, source_map=src_np,
+                    config=config, total_weight=total_weight)
+            else:
+                # R5, reproduced on purpose: the JAX package reports the
+                # unrefined sup bound for vector and chromatic kernels
+                # (its simulate.py:889-894 passes pupil=None); trace =
+                # kept / energy covers both operators.
+                kept = float(socs.eigenvalues.sum(dtype=torch.float64))
+                bound = socs_image_nrms_bound(
+                    socs, spectrum, image,
+                    trace=kept / energy if energy > 0 else 0.0,
+                    total_weight=total_weight)
         socs_report = {"socs_rank": socs.rank,
                        "socs_energy_captured": round(float(energy), 6),
                        "socs_image_nrms_bound": float(bound)}
@@ -248,10 +396,13 @@ def simulate(
         spectrum = mask_spectrum(geometry, config, solver=solver)
         pupil = pupil_function(aberrations, config, device=device)
         max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
-        image = abbe_image_points(
-            spectrum, pupil, shifts, weights, config, device=device,
+        image = _exact_image(
+            spectrum, aberrations, shifts, weights, config, device=device,
             solver=solver, chunk=chunk, normalize=normalize,
-            total_weight=pts.total_weight, max_abs_shift=max_abs_shift)
+            max_abs_shift=max_abs_shift, polarization=polarization,
+            apodize=apodize, chromatic=chromatic)
+    if perturb is not None and perturb.active:
+        image = apply_perturbation(image, perturb, config.pixel_size)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0
@@ -267,12 +418,19 @@ def simulate(
         "fft_size": ws.fft_size,
         "epsilon": ws.epsilon,
         "source_points": pts.live_count,
-        "polarization": "scalar",
-        "chromatic": "monochromatic",
+        "polarization": (str(polarization) if polarization is not None
+                         else "scalar"),
+        "chromatic": (f"{chromatic.shape} E95={chromatic.bandwidth_pm}pm "
+                      f"x{chromatic.samples} @ {chromatic.focus_nm_per_pm}"
+                      "nm/pm" if chromatic is not None else "monochromatic"),
         "mask3d": "thin",
         "wall_clock_s": elapsed,
-        **socs_report,
     }
+    if perturb is not None and perturb.active:
+        report["perturbation"] = (
+            f"MSD=({perturb.msd_x_nm},{perturb.msd_y_nm})nm "
+            f"TIS={perturb.flare_tis}")
+    report.update(socs_report)
     return SimulationResult(image=image, spectrum=spectrum, pupil=pupil,
                             source_map=src_np, report=report)
 
@@ -289,25 +447,30 @@ def simulate_batch(
     normalize: bool = False,
     socs_rank: int | str = "auto",
     polarization=None,
+    apodize: bool = True,
     chromatic=None,
     perturb=None,
     mask3d=None,
 ) -> torch.Tensor:
     """(B, n, n) aerial images on ``device`` for a batch of (B, n, n) mask
-    geometries under one optical setup: the pupil, source points and SOCS
-    kernels are made once per batch, not once per mask (the JAX package's
-    vmap over masks is a loop here). Synchronized before it returns."""
-    _check_options(solver, polarization=polarization, chromatic=chromatic,
-                   perturb=perturb, mask3d=mask3d)
+    geometries under one optical setup: the source points and SOCS kernels
+    are made once per batch, not once per mask (the JAX package's vmap over
+    masks is a loop here). ``polarization``, ``apodize``, ``chromatic`` and
+    ``perturb`` act as in :func:`simulate`; the flare background is each
+    image's own mean (ROADMAP.md Queue 3, R7). Synchronized before it
+    returns."""
+    _check_options(solver, mask3d)
     device = torch.device(device)
     geometries = to_tensor(geometries, device=device, dtype=torch.float32)
     if geometries.ndim != 3:
         raise ValueError(f"expected (B, n, n) geometries, got {tuple(geometries.shape)}")
     src_np, aberrations = _host_inputs(source_map, aberrations)
+    polarization = _polarization_key(polarization)
     images = torch.empty_like(geometries)
     if solver == "socs":
         socs = _socs_kernels_cached(config, src_np, aberrations, socs_rank,
-                                    device=device)[0]
+                                    device=device, polarization=polarization,
+                                    apodize=apodize, chromatic=chromatic)[0]
         w_sum = float(src_np.sum(dtype=np.float64))
         for b, geometry in enumerate(geometries):
             images[b] = _socs_apply(geometry, socs, config, chunk=chunk,
@@ -316,13 +479,15 @@ def simulate_batch(
         pts = source_points(src_np)
         shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
         max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
-        pupil = pupil_function(aberrations, config, device=device)
         for b, geometry in enumerate(geometries):
-            images[b] = abbe_image_points(
-                mask_spectrum(geometry, config, solver=solver), pupil, shifts,
-                weights, config, device=device, solver=solver, chunk=chunk,
-                normalize=normalize, total_weight=pts.total_weight,
-                max_abs_shift=max_abs_shift)
+            images[b] = _exact_image(
+                mask_spectrum(geometry, config, solver=solver), aberrations,
+                shifts, weights, config, device=device, solver=solver,
+                chunk=chunk, normalize=normalize, max_abs_shift=max_abs_shift,
+                polarization=polarization, apodize=apodize,
+                chromatic=chromatic)
+    if perturb is not None and perturb.active:
+        images = apply_perturbation(images, perturb, config.pixel_size)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return images

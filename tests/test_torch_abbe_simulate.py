@@ -182,10 +182,15 @@ def test_engine_policy_and_slice_limits():
         pa.resolve_engine("warp9", device="cpu")
     mask = pt.demo_bars(pt.OpticsConfig(pixel_number=32), device="cpu")
     src = pt.LightSource(mask.config).classical()
-    for kw in (dict(polarization="x"), dict(chromatic=1), dict(mask3d=1),
-               dict(perturb=1), dict(solver="socs", polarization="x")):
+    # of the JAX package's options only mask3d is still to port
+    for kw in (dict(mask3d=1), dict(solver="socs", mask3d=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             pt.simulate(mask, src, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        pt.simulate_batch(mask.geometry[None], mask.config, src, device="cpu",
+                          mask3d=1)
+    with pytest.raises(ValueError, match="unknown polarization"):
+        pt.simulate(mask, src, device="cpu", polarization="z")
     with pytest.raises(ValueError, match="unknown solver"):
         pt.simulate(mask, src, device="cpu", solver="hopkins")
     with pytest.raises(TypeError):
@@ -232,6 +237,9 @@ def test_import_leaves_jax_out():
             "lithographysimulator_tpu_torch.cli, "
             "lithographysimulator_tpu_torch.interop, "
             "lithographysimulator_tpu_torch.ops.hopkins, "
+            "lithographysimulator_tpu_torch.ops.vector, "
+            "lithographysimulator_tpu_torch.ops.focus, "
+            "lithographysimulator_tpu_torch.ops.perturb, "
             "lithographysimulator_tpu_torch.utils.artifacts, "
             "lithographysimulator_tpu_torch.ops.kernels.build; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

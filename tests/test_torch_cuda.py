@@ -204,3 +204,52 @@ def test_socs_path_end_to_end():
     matmul = lt.socs_image(res.spectrum, socs, cfg, engine="matmul")
     assert _nrms(int8.cpu(), matmul.cpu()) < 1e-5
     assert _nrms(res.image.cpu(), int8.cpu()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_vector_exact_int8_matches_f32():
+    """The unpolarized vector image on the card (six component passes
+    through the int8 kernels) against the f32 matmul engine, TF32 off."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.abbe import _pad_points, source_points
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    _cuda()
+    cfg = lt.OpticsConfig(pixel_number=128, na=0.9)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    ik.reset_launch_counts()
+    res = lt.simulate(lt.demo_bars(cfg, device="cuda"), src, [0, 0, 0.01, 0, 50],
+                      device="cuda", polarization="unpolarized")
+    assert min(ik.LAUNCHES.values()) > 0
+    pts = source_points(src)
+    shifts, weights = _pad_points(pts.shifts, pts.weights, 4)
+    ref = lt.vector_abbe_image(res.spectrum, res.pupil, shifts, weights, cfg,
+                               device="cuda", polarization="unpolarized",
+                               engine="matmul")
+    assert _nrms(res.image.cpu(), ref.cpu()) < TOL
+
+
+@pytest.mark.cuda
+def test_chromatic_socs_int8_apply_matches_complex128():
+    """A polychromatic kernel set built on the card, applied through the
+    int8 kernels, against a complex128 zoom-DFT apply of the same kernels."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.abbe import (_postprocess_gau23,
+                                                         _zoom_dft_kernel)
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    cfg = lt.OpticsConfig(pixel_number=128)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    socs = lt.randomized_socs_chromatic(
+        np.zeros(5, np.float32), src, cfg, device=dev, rank=32,
+        spectrum=lt.LaserSpectrum(bandwidth_pm=0.3, samples=5))
+    spectrum = lt.mask_spectrum(lt.demo_bars(cfg, device=dev).geometry, cfg)
+    ik.reset_launch_counts()
+    img = lt.socs_image(spectrum, socs, cfg)
+    assert min(ik.LAUNCHES.values()) > 0
+    t = torch.as_tensor(_zoom_dft_kernel(cfg.n, cfg.wavelength_scaling().fft_size),
+                        dtype=torch.complex128, device=dev)
+    fields = t @ (socs.kernels * spectrum).to(torch.complex128) @ t.T
+    acc = torch.sum(socs.eigenvalues.double()[:, None, None] * fields.abs() ** 2, dim=0)
+    assert _nrms(img.cpu(), _postprocess_gau23(acc, cfg).cpu()) < TOL

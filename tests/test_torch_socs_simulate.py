@@ -116,7 +116,7 @@ def test_simulate_socs_rejections(demo):
     with pytest.raises(ValueError, match="solver='socs'"):
         pt.simulate(mask, SRC, ABERR, device="cpu", socs_tolerance=1e-3)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _socs(mask, chromatic=1)
+        _socs(mask, mask3d=1)
 
 
 def test_simulate_socs_dark_source(demo):
@@ -248,3 +248,33 @@ def test_simulate_socs_bound_past_fft_size_2n():
     res = pt.simulate(pt.demo_bars(config_from_jax(cfg), device="cpu"), src, ABERR,
                       device="cpu", solver="socs", socs_rank=2)
     assert normalized_rms(_np(res.image), exact) <= res.report["socs_image_nrms_bound"]
+
+
+def test_cli_vector_chromatic_perturbed(capsys):
+    """simulate with --polarization, --bandwidth-pm and --msd-x, and socs
+    with --polarization: the JAX CLI's keys, report strings and channel
+    count."""
+    from lithographysimulator_tpu import cli as jcli
+
+    common = ["--pixel-number", "32", "--na", "0.9", "--source", "classical",
+              "--sigma-out", "0.5"]
+    sim = ["simulate", *common, "--polarization", "x", "--bandwidth-pm", "0.3",
+           "--chromatic-samples", "3", "--msd-x", "5"]
+    assert pcli.main([*sim, "--device", "cpu"]) == 0
+    ours = _last_json(capsys.readouterr().out)
+    assert jcli.main(sim) == 0
+    ref = _last_json(capsys.readouterr().out)
+    assert set(ours) == set(ref)
+    for key in ("polarization", "chromatic", "perturbation", "source_points"):
+        assert ours[key] == ref[key]
+    # at NA 0.6 one of the six unpolarized channels is exactly redundant
+    socs = ["socs", "--pixel-number", "32", "--na", "0.6", "--rank", "16",
+            "--polarization", "unpolarized"]
+    assert pcli.main([*socs, "--device", "cpu"]) == 0
+    ours = _last_json(capsys.readouterr().out)
+    assert jcli.main(socs) == 0
+    ref = _last_json(capsys.readouterr().out)
+    assert set(ours) == set(ref)
+    assert ours["channels"] == ref["channels"] and ours["channels"] is not None
+    assert ours["rank"] == ref["rank"] == 16
+    assert ours["energy_captured"] == pytest.approx(ref["energy_captured"], rel=1e-3)

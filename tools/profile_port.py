@@ -2,7 +2,7 @@
 """Kernel-time breakdown of the PyTorch/CUDA port (lithographysimulator_tpu_torch)
 on one CUDA card, from torch.profiler. Run from the repository root:
 
-    PYTHONPATH=. python3 tools/profile_port.py [--chunks 512] [--rank 256] [--exact-only]
+    PYTHONPATH=. python3 tools/profile_port.py [--chunks 512] [--rank 256] [--exact-only] [--vector]
 
 1. 1024^2 exact Abbe (lines/spaces 64/128 px, quasar sigma 0.4/0.8, as in
    chip_smoke.py phase 4): the first ``chunks`` chunks of 4 source points
@@ -10,7 +10,13 @@ on one CUDA card, from torch.profiler. Run from the repository root:
 2. 1024^2 SOCS, the same mask and source: one rank-``rank``
    randomized_socs build (Rayleigh-Ritz, power_iters=2, as simulate uses)
    and one socs_image apply on each of the int8, matmul and fft engines
-   (skipped with --exact-only).
+   (skipped with --exact-only);
+3. with --vector, the paths of vector and chromatic imaging: the same
+   ``chunks`` chunks through vector_abbe_image (unpolarized, six component
+   passes, int8), the rank-``rank`` randomized_socs_vector build
+   (unpolarized) and randomized_socs_chromatic build (0.3 pm E95, 5
+   samples), both as bench.py runs them (power_iters=1, the setup's
+   channel rotation).
 
 Each run is traced after one untraced warm-up run and one untraced timed
 run. For each it prints the untraced and the traced wall clock (host clock
@@ -122,6 +128,8 @@ def main() -> int:
     ap.add_argument("--chunks", type=int, default=512)
     ap.add_argument("--rank", type=int, default=256)
     ap.add_argument("--exact-only", action="store_true")
+    ap.add_argument("--vector", action="store_true",
+                    help="also trace the vector and chromatic paths")
     args = ap.parse_args()
 
     import torch
@@ -172,8 +180,42 @@ def main() -> int:
         show(f"1024^2 SOCS apply, rank {args.rank}, engine {engine}", r,
              -(-args.rank // 4) if engine == "int8" else None)
         results[f"socs_apply_{engine}"] = r
+    del socs_holder["socs"]
+    if args.vector:
+        vector_paths(torch, lt, args, cfg, spectrum, pupil, src, shifts, weights,
+                     results)
     print(json.dumps(results))
     return 0
+
+
+def vector_paths(torch, lt, args, cfg, spectrum, pupil, src, shifts, weights,
+                 results) -> None:
+    """Part 3: the vector exact chunks and the vector and chromatic builds."""
+    from lithographysimulator_tpu_torch.simulate import _channel_rotation_cached
+
+    r = trace(torch, lambda: lt.vector_abbe_image(
+        spectrum, pupil, shifts, weights, cfg, device="cuda",
+        polarization="unpolarized"))
+    show(f"1024^2 vector exact, unpolarized, {args.chunks} chunks of 4 x 6 "
+         "component passes, int8", r, 6 * args.chunks)
+    print(f"  untraced: {4 * args.chunks / r['untraced_wall_ms'] * 1e3:.1f} "
+          f"source points/s", flush=True)
+    results["vector_exact_int8"] = r
+    rot = _channel_rotation_cached(cfg, "unpolarized", True, None, "cuda")
+    r = trace(torch, lambda: lt.randomized_socs_vector(
+        pupil, src, cfg, rank=args.rank, polarization="unpolarized",
+        power_iters=1, channel_rotation=rot))
+    show(f"1024^2 vector SOCS build, rank {args.rank}, power_iters=1, "
+         f"{'no' if rot is None else rot.shape[2]} channel rotation", r)
+    results["vector_socs_build"] = r
+    spec = lt.LaserSpectrum(bandwidth_pm=0.3, samples=5)
+    rot = _channel_rotation_cached(cfg, None, True, spec, "cuda")
+    r = trace(torch, lambda: lt.randomized_socs_chromatic(
+        np.zeros(1, np.float32), src, cfg, spectrum=spec, rank=args.rank,
+        power_iters=1, channel_rotation=rot, device="cuda"))
+    show(f"1024^2 chromatic SOCS build, rank {args.rank}, power_iters=1, "
+         f"{'no' if rot is None else rot.shape[2]} channel rotation", r)
+    results["chromatic_socs_build"] = r
 
 
 if __name__ == "__main__":
