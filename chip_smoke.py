@@ -97,9 +97,37 @@ from phases 3-11:
     unperturbed image from the card;
 17. as phase 6, for phases 13-16.
 
-Run time on one H100 is about 3 minutes, most of it phase 4's int8 run,
-phase 5's host oracle, phase 8's exact image and phases 13 and 15's exact
-images.
+Thick-mask (M3D) imaging, gradients through the int8 engine, the M3D fits
+and the in-film stack, at phase 4's configuration, their launches counted
+apart from phases 3-16:
+
+18. simulate(mask3d=BoundaryLayer(width_nm=8, beta_h, beta_v, beta_h_asym,
+    beta_v_asym)) over all 49,400 points on the int8 engine, with its wall
+    clock and points/s; on every 41st point int8 (simulate) against f32
+    matmul on the same thick-mask spectrum, <= 1e-6, and the same pair for
+    an EdgeKernelM3D with k = 1; simulate(solver='socs', socs_rank=256,
+    mask3d=...) cold (the kernel cache emptied first) and on its cached
+    kernels, within its reported bound and within 2e-4 of the exact M3D
+    image;
+19. on every 41st point, the gradient of sum(image * M) (M fixed, random,
+    positive) for the spectrum and the pupil through the int8 engine
+    against the matmul engine's autograd, atol 1e-6 * max|g|; the same for
+    a rank-256 socs_image int8 apply (spectrum and eigenvalues); the
+    forward and backward times of one step of each;
+20. fit_boundary_layer (asymmetric) and fit_edge_kernel (k = 1), 10 Adam
+    steps on the auto engine (int8) at 50 nm defocus on every 41st point,
+    and the same fits on the f32 matmul engine: the loss must fall in each,
+    and both fitted models are printed; boundary_layer_from_rcwa (m3dcal's
+    calibration) at 256^2 and 50 steps: its fit must beat the thin mask;
+    film_stack_images over 3 depths (all points, scalar), and
+    film_socs_kernels with film_socs_stack at rank 96: each SOCS slab
+    within its trace bound of the exact slab;
+21. as phase 6, for phases 18-20, and each int8 fit of phase 20 by itself
+    launched every kernel (no silent matmul fallback).
+
+Run time on one H100 is about 4.5 minutes, most of it phase 4's int8 run,
+phase 5's host oracle, phase 8's exact image, phases 13 and 15's exact
+images, and phase 20's fits and film slabs.
 
 Kernel, plain and library times are device times: medians of 5 CUDA-event
 samples of one CUDA-graph replay of 10 back-to-back calls each, after a
@@ -116,13 +144,15 @@ window_product_limbs the bytes read are the union of this run's windows.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is nvidia-smi's name and power limit, and the one before that lists each
 kernel with its launches, error, times and bound (launches on phases 3-5,
-socs_launches on phases 8-11 and vector_launches on phases 13-16; ms,
+socs_launches on phases 8-11, vector_launches on phases 13-16 and
+m3d_launches on phases 18-20; ms,
 library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
 and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import re
 import subprocess
@@ -166,6 +196,10 @@ SUBSET_K = 41  # every k-th source point for the f32 references of 13-16
 TOL_CHROMATIC_SOCS = 5e-4  # tests/test_chromatic.py:141-150
 FOCUS_PLANES = (-60.0, 0.0, 60.0)
 FOCUS_RANK = 96
+FIT_STEPS = 10
+M3DCAL_N = 256  # m3dcal's calibration grid in phase 20 (its CLI default is 64)
+M3DCAL_STEPS = 50
+FILM_RANK = 96
 
 
 def log(msg: str) -> None:
@@ -946,6 +980,242 @@ def phase_focus_perturb(torch, lt) -> None:
           TOL_MATMUL)
 
 
+# ---------------------------------------------------------------------------
+# Thick mask (M3D), the int8 gradient, the fits and the film stack
+# ---------------------------------------------------------------------------
+
+def _m3d_models(lt):
+    """Phase 18's models: an asymmetric boundary layer and a k = 1 edge
+    kernel."""
+    bl = lt.BoundaryLayer(width_nm=8.0, beta_h=-0.2 + 0.1j, beta_v=-0.3,
+                          beta_h_asym=0.03j, beta_v_asym=0.05 - 0.02j)
+    ek = lt.EdgeKernelM3D(width_nm=8.0,
+                          taps_h_rise=(0.05j, -0.2 + 0.1j, 0.1),
+                          taps_h_fall=(0.1, -0.2 - 0.05j, 0.05j),
+                          taps_v_rise=(0.02, -0.3, 0.15),
+                          taps_v_fall=(0.15, -0.25, 0.02))
+    return bl, ek
+
+
+def _m3d_pair(torch, lt, cfg, mask, src, model, tag: str) -> None:
+    """simulate(mask3d=model) on every SUBSET_K-th point (int8) against the
+    f32 matmul engine on the same thick-mask spectrum: <= 1e-6."""
+    from lithographysimulator_tpu_torch.ops.abbe import (abbe_image_points,
+                                                         source_points)
+
+    sub = _subset(src, source_points(src), SUBSET_K)
+    sp = source_points(sub)
+    res, t8 = _timed(torch, lambda: lt.simulate(mask, sub, mask3d=model,
+                                                 device="cuda"))
+    ref, t32 = _timed(torch, lambda: abbe_image_points(
+        res.spectrum, res.pupil, *_padded(sp, 4), cfg, device="cuda",
+        engine="matmul"))
+    log(f"  {tag}, every {SUBSET_K}th point ({sp.live_count}): int8 "
+        f"(simulate) {t8:.3f} s, f32 matmul {t32:.3f} s")
+    check(f"{tag} int8 vs f32 matmul", nrms(check_image(res.image, cfg.n),
+                                            check_image(ref, cfg.n)), TOL_MATMUL)
+
+
+def phase_m3d(torch, lt) -> None:
+    """Phase 18: thick-mask imaging at phase 4's configuration."""
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    bl, ek = _m3d_models(lt)
+    live = source_points(src).live_count
+    res, t = _timed(torch, lambda: lt.simulate(mask, src, mask3d=bl,
+                                                device="cuda"))
+    exact = check_image(res.image, n)
+    log(f"[phase 18] 1024^2 {res.report['mask3d']}, int8 (simulate): {live} "
+        f"points in {t:.3f} s, {live / t:.1f} points/s (report "
+        f"{res.report['wall_clock_s']:.3f} s)")
+    _m3d_pair(torch, lt, cfg, mask, src, bl, "boundary layer")
+    _m3d_pair(torch, lt, cfg, mask, src, ek, "edge kernel k=1")
+    # a cold call builds its kernels: drop phase 8's (the TCC does not see
+    # the mask, so they would serve)
+    importlib.import_module("lithographysimulator_tpu_torch.simulate")._SOCS_BUILD_CACHE.clear()
+    cold, t_cold = _timed(torch, lambda: lt.simulate(
+        mask, src, solver="socs", socs_rank=SOCS_RANK, mask3d=bl, device="cuda"))
+    warm, t_warm = _timed(torch, lambda: lt.simulate(
+        mask, src, solver="socs", socs_rank=SOCS_RANK, mask3d=bl, device="cuda"))
+    img = check_image(cold.image, n)
+    log(f"  simulate(solver='socs', socs_rank={SOCS_RANK}, mask3d=BL): cold "
+        f"(build + apply) {t_cold:.3f} s, on cached kernels {t_warm:.4f} s; report "
+        f"{json.dumps(cold.report)}")
+    check("M3D SOCS cached rerun vs cold run",
+          nrms(check_image(warm.image, n), img), TOL_MATMUL)
+    err = nrms(img, exact)
+    check("M3D SOCS vs exact M3D image, against its reported bound", err,
+          cold.report["socs_image_nrms_bound"])
+    check("M3D SOCS vs exact M3D image", err, TOL_SOCS_EXACT)
+
+
+def _grad_pair(torch, fn, tensors, tag: str) -> None:
+    """Gradients of fn(engine) over ``tensors`` (made leaves anew for each
+    step), the int8 engine's against the matmul engine's autograd:
+    atol 1e-6 * max|g| (tests/test_pallas_kernel.py:200-202). Each engine
+    takes two steps in turns (int8, matmul, int8, matmul); the first
+    backward of a process pays a one-time set-up of its device thread and
+    kernels, so both steps' forward and backward times are printed and the
+    second step's gradients are compared."""
+    grads = {}
+    for turn in range(2):
+        for engine in ("int8", "matmul"):
+            leaves = [t.detach().clone().requires_grad_() for t in tensors]
+            loss, t_fwd = _timed(torch, lambda: fn(engine, *leaves))
+            _, t_bwd = _timed(torch, loss.backward)
+            grads[engine] = [x.grad for x in leaves]
+            log(f"  {tag}, step {turn + 1}, {engine}: forward {t_fwd:.4f} s, "
+                f"backward {t_bwd:.4f} s")
+    for k, (g8, g32) in enumerate(zip(grads["int8"], grads["matmul"])):
+        scale = float(g32.abs().max())
+        err = float((g8 - g32).abs().max()) / scale if scale > 0 else np.inf
+        check(f"{tag} gradient {k} (int8 vs matmul autograd), max|dg|/max|g|",
+              err, 1e-6)
+
+
+def phase_grads(torch, lt) -> None:
+    """Phase 19: gradients through the int8 engine on the card."""
+    from lithographysimulator_tpu_torch.ops.abbe import (abbe_image_points,
+                                                         source_points)
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    sp = source_points(_subset(src, source_points(src), SUBSET_K))
+    shifts, weights = _padded(sp, 4)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    m = 0.5 + torch.rand((n, n), generator=gen, device="cuda")
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    pupil = lt.pupil_function(np.array([0, 0, 0.05, 0.03, 30], np.float32),
+                              cfg, device="cuda")
+    log(f"[phase 19] 1024^2 gradients of sum(image * M), every {SUBSET_K}th "
+        f"point ({sp.live_count}, {len(weights) // 4} chunks)")
+
+    def exact_loss(engine, s, p):
+        return (abbe_image_points(s, p, shifts, weights, cfg, device="cuda",
+                                  engine=engine) * m).sum()
+
+    _grad_pair(torch, exact_loss, (spectrum, pupil),
+               "exact engine (spectrum, pupil)")
+    socs = lt.randomized_socs(pupil, src, cfg, rank=SOCS_RANK, power_iters=1)
+
+    def socs_loss(engine, s, lams):
+        k = lt.SOCSKernels(kernels=socs.kernels, eigenvalues=lams,
+                           total_rank=socs.total_rank)
+        return (lt.socs_image(s, k, cfg, engine=engine) * m).sum()
+
+    _grad_pair(torch, socs_loss, (spectrum, socs.eigenvalues),
+               f"rank-{SOCS_RANK} socs_image apply (spectrum, eigenvalues)")
+
+
+def _fit_pair(torch, lt, fit, tag: str, **kw) -> dict:
+    """One fit of FIT_STEPS Adam steps on the auto engine (int8) and one on
+    the f32 matmul engine; the loss must fall in both. Returns the launch
+    counts of the int8 fit alone."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    before = dict(ik.LAUNCHES)
+    (model, hist), t8 = _timed(torch, lambda: fit(device="cuda", **kw))
+    launched = {k: ik.LAUNCHES[k] - before[k] for k in KERNELS}
+    (model32, hist32), t32 = _timed(torch, lambda: fit(
+        device="cuda", engine="matmul", **kw))
+    for name, h in (("auto (int8)", hist), ("matmul", hist32)):
+        if not (np.isfinite(h).all() and h[-1] < h[0]):
+            raise AssertionError(f"{tag} {name}: loss did not fall: {h}")
+    log(f"  {tag}, {FIT_STEPS} steps: auto (int8) {t8:.3f} s, loss "
+        f"{hist[0]:.4e} -> {hist[-1]:.4e}; matmul {t32:.3f} s, loss "
+        f"{hist32[0]:.4e} -> {hist32[-1]:.4e}")
+    log(f"    int8 fit: {model}")
+    log(f"    matmul fit: {model32}")
+    log(f"    launches of the int8 fit: {launched}")
+    return launched
+
+
+def phase_fits_film(torch, lt) -> list:
+    """Phase 20: the M3D fits, m3dcal's calibration and the film stack.
+    Returns the launch counts of the two int8 fits for phase 21."""
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+    from lithographysimulator_tpu_torch.ops.hopkins import _field_power
+    from lithographysimulator_tpu_torch.ops.mask3d import (
+        boundary_layer_from_rcwa, fit_boundary_layer, fit_edge_kernel)
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    bl, ek = _m3d_models(lt)
+    sub = _subset(src, source_points(src), SUBSET_K)
+    sp = source_points(sub)
+    shifts, weights = _padded(sp, 8)
+    defocus = np.array([0, 0, 0, 0, 50.0], np.float32)
+    log(f"[phase 20] 1024^2 M3D fits on every {SUBSET_K}th point "
+        f"({sp.live_count}), 50 nm defocus")
+    fit_launches = []
+    for fit, model, tag in ((fit_boundary_layer, bl, "fit_boundary_layer"),
+                            (fit_edge_kernel, ek, "fit_edge_kernel k=1")):
+        target = lt.simulate(mask, sub, defocus, normalize=True, mask3d=model,
+                             device="cuda").image
+        extra = dict(fit_asym=True) if fit is fit_boundary_layer else dict(k=1)
+        fit_launches.append(_fit_pair(
+            torch, lt, fit, tag, target_image=target, geometry=mask.geometry,
+            shifts=shifts, weights=weights, config=cfg, steps=FIT_STEPS,
+            aberrations=defocus, **extra))
+
+    m3d_cfg = lt.OpticsConfig(pixel_number=M3DCAL_N)
+    (model, report), t = _timed(torch, lambda: boundary_layer_from_rcwa(
+        m3d_cfg, device="cuda", pitch_px=16, duty=9 / 16, steps=M3DCAL_STEPS))
+    hist = report["history"]["avg"]
+    log(f"  boundary_layer_from_rcwa at {M3DCAL_N}^2 (m3dcal defaults, "
+        f"{M3DCAL_STEPS} steps): {t:.3f} s; {model}; thin nrms "
+        f"{report['thin_nrms']['avg']:.4e}, fit nrms {report['fit_nrms']['avg']:.4e}")
+    if not (hist[-1] < hist[0] and report["fit_nrms"]["avg"]
+            < report["thin_nrms"]["avg"]):
+        raise AssertionError(f"m3dcal calibration did not improve: {report}")
+
+    wafer = lt.WaferStack(n_resist=1.71 + 0.0077j, thickness_nm=150.0,
+                          under_layers=((37.0, 1.82 + 0.39j),))
+    depths = (25.0, 75.0, 125.0)
+    stack, t = _timed(torch, lambda: lt.film_stack_images(
+        mask, src, device="cuda", wafer_stack=wafer, depths_nm=depths,
+        normalize=False))
+    log(f"  film_stack_images, {len(depths)} depths x {source_points(src).live_count} "
+        f"points, int8: {t:.3f} s")
+    kernels, t_build = _timed(torch, lambda: lt.film_socs_kernels(
+        src, device="cuda", config=cfg, wafer_stack=wafer, depths_nm=depths,
+        rank=FILM_RANK))
+    fast, t_apply = _timed(torch, lambda: lt.film_socs_stack(
+        mask, kernels, normalize=False))
+    log(f"  film_socs_kernels rank {FILM_RANK}: {t_build:.3f} s; "
+        f"film_socs_stack: {t_apply:.4f} s")
+    from lithographysimulator_tpu_torch.ops.filmstack import (
+        film_component_multipliers)
+
+    mult = film_component_multipliers(cfg, wafer, depths)
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device="cuda")
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    w_sum = float(src.sum(dtype=np.float64))
+    for z, socs in enumerate(kernels):
+        comp = torch.as_tensor(mult[z, 0], dtype=torch.complex64,
+                               device="cuda") * pupil
+        bound = lt.socs_image_nrms_bound(socs, spectrum, fast[z],
+                                         trace=w_sum * _field_power(comp))
+        check(f"film SOCS slab {z} ({depths[z]:.0f} nm) vs exact slab, "
+              "against its bound", nrms(check_image(fast[z], n),
+                                        check_image(stack[z], n)), bound)
+    return fit_launches
+
+
+def _fits_launched(fit_launches) -> None:
+    """Phase 21's check of the fits alone: each int8 fit launched every
+    kernel, one window_product_limbs a row_limb_gemm (no matmul fallback)."""
+    for tag, launched in zip(("fit_boundary_layer", "fit_edge_kernel"),
+                             fit_launches):
+        if min(launched.values()) <= 0 or (launched["window_product_limbs"]
+                                           != launched["row_limb_gemm"]):
+            raise AssertionError(f"{tag} did not run on the int8 kernels: "
+                                 f"{launched}")
+    log("  both int8 fits launched every kernel (no matmul fallback): ok")
+
+
 def _launched(ik, phases: str) -> dict:
     """The launch counts since the last reset: every kernel of the path ran,
     and one window_product_limbs launch fed each row_limb_gemm launch."""
@@ -1010,12 +1280,21 @@ def main() -> int:
     log("[phase 17]")
     vector_launches = _launched(ik, "13-16")
 
+    ik.reset_launch_counts()  # count only the thick-mask, gradient, fit and film paths
+    phase_m3d(torch, lt)
+    phase_grads(torch, lt)
+    fit_launches = phase_fits_film(torch, lt)
+    log("[phase 21]")
+    m3d_launches = _launched(ik, "18-20")
+    _fits_launched(fit_launches)
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
          "launches": launches[k], **stats[k],
          "socs_launches": socs_launches[k],
          **{f"socs_{key}": v for key, v in socs_stats[k].items()},
-         "vector_launches": vector_launches[k]}
+         "vector_launches": vector_launches[k],
+         "m3d_launches": m3d_launches[k]}
         for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

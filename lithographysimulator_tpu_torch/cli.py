@@ -1,10 +1,10 @@
-"""Command-line interface of the port: the ``simulate`` and ``socs``
-subcommands.
+"""Command-line interface of the port: the ``simulate``, ``socs`` and
+``m3dcal`` subcommands.
 
-Same flags as ``python -m lithographysimulator_tpu simulate`` / ``socs`` for
-the masks, sources, solvers and imaging options this port has (vector,
-chromatic and, on ``simulate``, the scanner perturbations), plus
-``--device`` and, for ``simulate``, ``--socs-rank``:
+Same flags as ``python -m lithographysimulator_tpu simulate`` / ``socs`` /
+``m3dcal`` for the masks, sources, solvers and imaging options this port
+has (vector, chromatic, thick mask and, on ``simulate``, the scanner
+perturbations), plus ``--device`` and, for ``simulate``, ``--socs-rank``:
 
     python -m lithographysimulator_tpu_torch simulate --device cuda \
         --pixel-number 512 --source quasar --sigma-in 0.4 --sigma-out 0.8 \
@@ -15,6 +15,10 @@ chromatic and, on ``simulate``, the scanner perturbations), plus
     python -m lithographysimulator_tpu_torch socs --device cuda \
         --pixel-number 1024 --rank 256 --power-iters 1 \
         --polarization unpolarized --out kernels.npz
+    python -m lithographysimulator_tpu_torch m3dcal --device cuda \
+        --steps 150 --out m3d.json
+    python -m lithographysimulator_tpu_torch simulate --device cuda \
+        --pixel-number 1024 --m3d m3d.json
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ def _build_mask(args, config):
     if args.mask_file:
         if not str(args.mask_file).lower().endswith(".npy"):
             raise SystemExit("--mask-file takes a .npy array (GDSII import is "
-                             "ROADMAP.md Queue 1 item 14)")
+                             "ROADMAP.md Queue 1 item 6)")
         return mask_mod.from_array(np.load(args.mask_file), config,
                                    device=device)
     n = config.n
@@ -110,6 +114,22 @@ def _build_chromatic(args):
                          shape=args.chromatic_shape)
 
 
+def _build_mask3d(args):
+    """M3D model from the flags, or None when the model is off: a
+    calibrated model file (--m3d, from m3dcal) wins over the scalar
+    BoundaryLayer flags."""
+    if args.m3d:
+        from .ops.mask3d import model_from_json
+
+        return model_from_json(args.m3d)
+    width, bh, bv = args.mask3d_width, args.mask3d_beta_h, args.mask3d_beta_v
+    if width == 0.0 or (bh == 0 and bv == 0):
+        return None
+    from .ops.mask3d import BoundaryLayer
+
+    return BoundaryLayer(width_nm=width, beta_h=bh, beta_v=bv)
+
+
 def _polarization(args):
     return None if args.polarization == "scalar" else args.polarization
 
@@ -126,7 +146,8 @@ def cmd_simulate(args) -> int:
                       normalize=args.normalize, socs_rank=rank,
                       polarization=_polarization(args),
                       chromatic=_build_chromatic(args),
-                      perturb=_build_perturb(args))
+                      perturb=_build_perturb(args),
+                      mask3d=_build_mask3d(args))
     print(json.dumps(result.report, default=repr))
     if args.out:
         out = Path(args.out)
@@ -183,9 +204,63 @@ def cmd_socs(args) -> int:
     return 0
 
 
-def _add_common(p) -> None:
+def cmd_m3dcal(args) -> int:
+    """First-principles thick-mask (M3D) calibration: the in-repo RCWA
+    solver on a line/space topography of the absorber stack, and the
+    boundary-layer (or, with --taps, edge-kernel) fit against its imaged
+    near field on --device. Prints the JAX CLI's JSON line (the model plus
+    the thin and corrected image residuals); --out also writes it, for the
+    imaging commands' --m3d."""
+    from .ops.mask3d import boundary_layer_from_rcwa, model_to_json
+
+    config = _build_config(args)
+    if config.n % args.pitch:
+        raise SystemExit(f"--pitch {args.pitch} must divide "
+                         f"--pixel-number {config.n}")
+    duty = args.duty if args.duty is not None else (
+        # default: ~half-pitch absorber rounded to an odd pixel count
+        # (exact rasterization; see ops.mask3d.grating_geometry)
+        (2 * (args.pitch // 4) + 1) / args.pitch)
+    t0 = time.perf_counter()
+    try:
+        bl, report = boundary_layer_from_rcwa(
+            config, device=args.device, stack=args.stack,
+            pitch_px=args.pitch, duty=duty, illumination_pol=args.pol,
+            width_nm=args.width_nm, n_harmonics=args.harmonics,
+            sigma_out=args.sigma_out, steps=args.steps,
+            learning_rate=args.lr, incidence_deg=args.incidence,
+            azimuth_deg=args.azimuth, taps=args.taps,
+            defocus_nm=tuple(args.defocus or ()))
+    except ValueError as exc:
+        # e.g. the stack/wavelength mismatch guard (ops.rcwa.resolve_stack)
+        raise SystemExit(f"m3dcal: {exc}") from None
+    out = model_to_json(bl)
+    out.update({
+        "stack": args.stack,
+        "illumination_pol": args.pol,
+        "incidence_deg": args.incidence,
+        "azimuth_deg": args.azimuth,
+        "defocus_nm": report["defocus_nm"],
+        "pitch_px": args.pitch,
+        "duty": round(duty, 6),
+        "thin_nrms": {k: round(v, 8) for k, v in report["thin_nrms"].items()},
+        "fit_nrms": {k: round(v, 8) for k, v in report["fit_nrms"].items()},
+        "wall_clock_s": round(time.perf_counter() - t0, 3),
+    })
+    line = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line)
+    return 0
+
+
+def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on ('cuda', 'cuda:1', 'cpu')")
+
+
+def _add_optics(p) -> None:
     p.add_argument("--pixel-number", type=int, default=64)
     p.add_argument("--pixel-size", type=float, default=25.0)
     p.add_argument("--wavelength", type=float, default=193.0)
@@ -198,6 +273,11 @@ def _add_common(p) -> None:
     p.add_argument("--channel-tol", type=float, default=1e-6,
                    help="principal-channel compression trace tolerance for "
                         "polarized/chromatic kernel builds")
+
+
+def _add_common(p) -> None:
+    _add_device(p)
+    _add_optics(p)
     p.add_argument("--mask", default="demo", choices=["demo", "lines", "contacts"])
     p.add_argument("--mask-file", default=None,
                    help=".npy array for the mask (overrides --mask)")
@@ -226,6 +306,69 @@ def _add_common(p) -> None:
     p.add_argument("--chromatic-samples", type=int, default=7)
     p.add_argument("--chromatic-shape", default="gaussian",
                    choices=["gaussian", "lorentzian", "tophat"])
+    p.add_argument("--mask3d-width", type=float, default=0.0,
+                   help="thick-mask boundary-layer strip width in nm "
+                        "(0 = thin/Kirchhoff mask)")
+    p.add_argument("--mask3d-beta-h", type=complex, default=0j,
+                   help="complex strip transmission on horizontal edges, "
+                        "e.g. '-0.2+0.1j'")
+    p.add_argument("--mask3d-beta-v", type=complex, default=0j,
+                   help="complex strip transmission on vertical edges")
+    p.add_argument("--m3d", metavar="FILE", default=None,
+                   help="calibrated M3D model JSON from 'm3dcal --out' "
+                        "(boundary layer incl. asymmetry, or multi-tap edge "
+                        "kernel); overrides the scalar --mask3d-* flags")
+
+
+def _add_m3dcal(sub) -> None:
+    p = sub.add_parser(
+        "m3dcal", help="first-principles thick-mask (boundary-layer) "
+                       "calibration against the in-repo rigorous RCWA solver")
+    _add_device(p)
+    _add_optics(p)
+    p.add_argument("--stack", default="binary_cr",
+                   choices=["binary_cr", "att_psm_mosi", "euv_ta"],
+                   help="absorber stack to solve rigorously (euv_ta is "
+                        "reflective: TaBN on a 40x Mo/Si mirror)")
+    p.add_argument("--incidence", type=float, default=0.0,
+                   help="illumination tilt in degrees (EUV chief ray ~6); "
+                        "non-zero turns on the shadowing-asymmetry fit and, "
+                        "with --taps, the direct conical-mount "
+                        "horizontal-edge calibration")
+    p.add_argument("--azimuth", type=float, default=0.0,
+                   help="tilt direction in the layout plane, degrees from "
+                        "+x (0 = across vertical lines)")
+    p.add_argument("--taps", type=int, default=0,
+                   help="fit the multi-tap EdgeKernelM3D with offsets "
+                        "-taps..+taps instead of the 1-px boundary layer "
+                        "(use >=1 for EUV stacks)")
+    p.add_argument("--pol", default="unpolarized",
+                   choices=["x", "y", "unpolarized"],
+                   help="illumination polarization (x/y give an H-V split; "
+                        "unpolarized is isotropic by symmetry)")
+    p.add_argument("--pitch", type=int, default=16,
+                   help="line/space pitch in pixels (must divide "
+                        "--pixel-number)")
+    p.add_argument("--duty", type=float, default=None,
+                   help="absorber cover fraction (default: ~half pitch "
+                        "rounded to an odd pixel count)")
+    p.add_argument("--width-nm", type=float, default=8.0,
+                   help="boundary-layer strip width held fixed in the fit")
+    p.add_argument("--harmonics", type=int, default=31,
+                   help="RCWA retained order count (odd)")
+    p.add_argument("--sigma-out", type=float, default=0.5,
+                   help="classical calibration source radius")
+    p.add_argument("--steps", type=int, default=150)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--defocus", type=float, nargs="*", default=None,
+                   metavar="NM",
+                   help="through-focus calibration planes in nm (e.g. -80 0 "
+                        "80); pins the sign of Im(beta) that an in-focus-only "
+                        "target leaves weakly determined")
+    p.add_argument("--out", default=None, metavar="FILE",
+                   help="also write the result JSON to FILE, for the "
+                        "imaging commands' --m3d flag")
+    p.set_defaults(func=cmd_m3dcal)
 
 
 def main(argv=None) -> int:
@@ -259,5 +402,6 @@ def main(argv=None) -> int:
                         "peak than the standard build)")
     p.add_argument("--out", default=None, help="output .npz path")
     p.set_defaults(func=cmd_socs)
+    _add_m3dcal(sub)
     args = parser.parse_args(argv)
     return args.func(args)

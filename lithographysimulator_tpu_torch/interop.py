@@ -2,12 +2,13 @@
 
 This system has no weights: an optics config, a mask, a source map and an
 aberration vector are its parameters (with, for vector, chromatic and
-perturbed imaging, a laser spectrum and an image perturbation), and a SOCS
+perturbed imaging, a laser spectrum and an image perturbation; for thick
+masks an M3D model, and for in-film imaging a wafer stack), and a SOCS
 kernel set is the state a build leaves. Source maps and aberration vectors
 cross as numpy arrays (``np.asarray(x)`` of either package's value), which
 every port entry point takes; the config, the mask, the spectrum, the
-perturbation and a kernel set need the helpers here. Nothing here imports
-jax.
+perturbation, an M3D model, a wafer stack and a kernel set need the
+helpers here. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import torch
 
 from .config import LaserSpectrum, OpticsConfig
 from .models.mask import Mask, from_array
+from .ops.filmstack import WaferStack
 from .ops.hopkins import SOCSKernels
+from .ops.mask3d import BoundaryLayer, EdgeKernelM3D
 from .ops.perturb import ImagePerturbation
 
 
@@ -44,6 +47,21 @@ def perturbation_from_jax(perturb) -> ImagePerturbation:
     """Port :class:`..ops.perturb.ImagePerturbation` with the same fields as
     ``perturb`` (the JAX package's, or any object with them)."""
     return _same_fields(ImagePerturbation, perturb)
+
+
+def mask3d_from_jax(model) -> BoundaryLayer | EdgeKernelM3D:
+    """Port M3D model with the same fields as ``model``: an
+    :class:`..ops.mask3d.EdgeKernelM3D` when it carries tap vectors, else a
+    :class:`..ops.mask3d.BoundaryLayer` (the JAX package's classes, or any
+    object with their fields)."""
+    cls = EdgeKernelM3D if hasattr(model, "taps_v_rise") else BoundaryLayer
+    return _same_fields(cls, model)
+
+
+def wafer_stack_from_jax(stack) -> WaferStack:
+    """Port :class:`..ops.filmstack.WaferStack` with the same fields as
+    ``stack`` (the JAX package's, or any object with them)."""
+    return _same_fields(WaferStack, stack)
 
 
 def mask_from_numpy(geometry, config, *, device) -> Mask:

@@ -14,8 +14,12 @@ Engines (:func:`resolve_engine`):
   windowed path the phase-free 3M form with one static ``T0``, in float32
   with TF32 off;
 * ``int8`` / ``int8_fast``: the same windowed contraction on the
-  hand-written int8 limb kernels (:mod:`.kernels.intensity_int8`),
-  forward only.
+  hand-written int8 limb kernels (:mod:`.kernels.intensity_int8`); their
+  gradient recomputes the chunk through the float32 3M path, as the JAX
+  package's ``custom_vjp`` does (:class:`_Int8Intensity`). ``pallas`` is
+  accepted as an alias of ``int8``.
+
+Only ``matmul_precision='highest'`` exists: TF32 stays off.
 """
 
 from __future__ import annotations
@@ -44,14 +48,27 @@ ENGINES = ("fft", "matmul", "int8", "int8_fast")
 def resolve_engine(engine: str, *, device) -> str:
     """``'auto'`` -> ``'int8'`` for a CUDA device (the hand-written
     kernels) and ``'fft'`` for the CPU, mirroring the JAX package's TPU/CPU
-    split; explicit names are validated. ``int8_fast`` (2-limb, ~1.5e-5
-    normalized RMS) is never chosen automatically."""
+    split; explicit names are validated, and ``pallas`` is an alias of
+    ``int8``. ``int8_fast`` (2-limb, ~1.5e-5 normalized RMS) is never chosen
+    automatically."""
+    if engine == "pallas":
+        engine = "int8"
     if engine != "auto" and engine not in ENGINES:
         raise ValueError(
             f"unknown field-transform engine {engine!r} (allowed: {ENGINES})")
     if engine != "auto":
         return engine
     return "int8" if torch.device(device).type == "cuda" else "fft"
+
+
+def check_matmul_precision(matmul_precision: str) -> None:
+    """The JAX package's ``matmul_precision`` argument: only
+    ``'highest'`` (full float32) exists here, since TF32 stays off; its
+    reduced settings are refused."""
+    if matmul_precision != "highest":
+        raise ValueError(
+            f"matmul_precision={matmul_precision!r}: only 'highest' is "
+            "supported (TF32 stays off for every engine contraction)")
 
 
 # ---------------------------------------------------------------------------
@@ -183,23 +200,72 @@ def _intensity_windowed_3m(x, t0r, t0i, weights):
     return torch.sum(weights[:, None, None] * (er * er + ei * ei), dim=0)
 
 
-def _intensity_windowed_int8(a, b, starts, w: int, t_limbs, t_scales,
-                             weights, *, fast: bool, out: torch.Tensor):
-    """Same contraction as :func:`_intensity_windowed_3m` for the window
-    products X_b of ``a`` and ``b`` at ``starts`` (see
-    :func:`window_product_limbs`), on the int8 limb kernels, added into
-    ``out`` in place: four launches on the card, and X is never formed.
-    Forward only."""
-    if a.requires_grad or b.requires_grad or weights.requires_grad:
-        raise NotImplementedError(
-            "the int8 engine is forward-only; its f32-recompute backward "
-            "arrives with optimize.py (ROADMAP.md, Queue 2: int8 VJP) - use "
-            "engine='matmul' for gradients")
+def _int8_chunk(a, b, starts, w: int, t_limbs, t_scales, weights, *,
+                fast: bool, out: torch.Tensor):
+    """The int8 chunk: four launches on the card, X is never formed, and
+    the image is added into ``out`` in place."""
     x_limbs, x_scales = window_product_limbs(a, b, starts, w)
     yr, yi = row_limb_gemm(x_limbs, x_scales, t_limbs, t_scales, fast=fast)
     y_limbs, y_scales = row_requantize(yr, yi, t_limbs.shape[-1])
     return column_intensity_int8(y_limbs, y_scales, t_limbs, t_scales,
                                  weights, fast=fast, out=out)
+
+
+class _Int8Intensity(torch.autograd.Function):
+    """One int8 chunk as a differentiable function of ``a``, ``b`` and
+    ``weights``. The forward runs the four kernels into a fresh (n, n)
+    buffer; the backward re-forms X with :func:`window_products` and
+    differentiates :func:`_intensity_windowed_3m` in float32, as the JAX
+    package's ``custom_vjp`` does (its ``abbe.py`` bwd): limb rounding has
+    no useful gradient. T0 gets none."""
+
+    @staticmethod
+    def forward(ctx, a, b, weights, starts, w, t_limbs, t_scales, t0r, t0i,
+                fast):
+        n = t_limbs.shape[2]
+        out = torch.zeros((n, n), dtype=torch.float32, device=b.device)
+        _int8_chunk(a, b, starts, w, t_limbs, t_scales, weights, fast=fast,
+                    out=out)
+        ctx.save_for_backward(a, b, weights, starts, t0r, t0i)
+        ctx.w = w
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, weights, starts, t0r, t0i = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            a_, b_, w_ = (t.detach().requires_grad_(r)
+                          for t, r in zip((a, b, weights), need))
+            x = window_products(a_, b_, starts, ctx.w)
+            part = _intensity_windowed_3m(x, t0r, t0i, w_)
+            live = [t for t, r in zip((a_, b_, w_), need) if r]
+            # the VJP as the gradient of <part, g>: the same values, and
+            # torch.autograd.grad with no grad_outputs skips the shape check
+            # that imports sympy (seconds) on its first call in a process
+            grads = iter(torch.autograd.grad((part * g).sum(), live))
+        return (*(next(grads) if r else None for r in need),
+                None, None, None, None, None, None, None)
+
+
+def _intensity_windowed_int8(a, b, starts, w: int, t0r, t0i, t_limbs,
+                             t_scales, weights, *, fast: bool,
+                             out: torch.Tensor):
+    """Same contraction as :func:`_intensity_windowed_3m` for the window
+    products X_b of ``a`` and ``b`` at ``starts`` (see
+    :func:`window_product_limbs`), on the int8 limb kernels: ``t_limbs``,
+    ``t_scales`` quantize T0's float32 planes ``t0r``, ``t0i``. Without
+    gradients the image is added into ``out`` in place (four launches on
+    the card) and ``out`` is returned. When grad mode is on and an input
+    requires grad, the chunk runs as :class:`_Int8Intensity` (the same four
+    launches into a fresh buffer; T0's planes serve its backward) and
+    ``out + chunk`` is returned: the caller keeps the result."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                    or weights.requires_grad):
+        return out + _Int8Intensity.apply(a, b, weights, starts, w, t_limbs,
+                                          t_scales, t0r, t0i, fast)
+    return _int8_chunk(a, b, starts, w, t_limbs, t_scales, weights, fast=fast,
+                       out=out)
 
 
 def _fields_gau23(pupil_tiled, spectrum, shifts, fft_size, engine="fft"):
@@ -236,13 +302,16 @@ def accumulate_intensity(
     solver: Solver = "gau23",
     chunk: int = 4,
     engine: str = "auto",
+    matmul_precision: str = "highest",
     max_abs_shift: int | None = None,
 ) -> torch.Tensor:
     """Loop over source-point chunks accumulating ``sum_s w_s |E_s|^2``.
 
     ``shifts`` (p, 2) integer offsets live on the host; ``weights`` (p,) on
     the spectrum's device; p must be divisible by ``chunk``. Returns the raw
-    (n, n) float32 intensity (before postprocessing)."""
+    (n, n) float32 intensity (before postprocessing). Differentiable on
+    every engine (the int8 engines through :class:`_Int8Intensity`)."""
+    check_matmul_precision(matmul_precision)
     n = config.n
     device = spectrum.device
     shifts = np.asarray(shifts).reshape(-1, 2)
@@ -287,10 +356,10 @@ def accumulate_intensity(
         w = weights[c : c + chunk]
         if solver == "gau23" and windowed:
             if engine in ("int8", "int8_fast"):
-                _intensity_windowed_int8(one_pupil, spectrum,
-                                         starts[c : c + chunk], w_win, t_limbs,
-                                         t_scales, w, fast=engine == "int8_fast",
-                                         out=acc)
+                acc = _intensity_windowed_int8(
+                    one_pupil, spectrum, starts[c : c + chunk], w_win, t0r,
+                    t0i, t_limbs, t_scales, w, fast=engine == "int8_fast",
+                    out=acc)
                 continue
             x = window_products(one_pupil, spectrum, starts[c : c + chunk], w_win)
             acc = acc + _intensity_windowed_3m(x, t0r, t0i, w)
@@ -324,11 +393,13 @@ def abbe_image_points(
     normalize: bool = False,
     total_weight=None,
     engine: str = "auto",
+    matmul_precision: str = "highest",
     max_abs_shift: int | None = None,
 ) -> torch.Tensor:
     """Aerial image on ``device`` from an explicit padded point list:
     ``shifts`` (p, 2) host integers and ``weights`` (p,), p divisible by
     ``chunk``; zero-weight entries act as padding."""
+    check_matmul_precision(matmul_precision)
     spectrum = to_tensor(spectrum, device=device, dtype=torch.complex64)
     pupil = to_tensor(pupil, device=device, dtype=torch.complex64)
     weights = to_tensor(weights, device=device, dtype=torch.float32)

@@ -41,6 +41,25 @@ def _chunk_dot(a, b, conj_a: bool, conj_b: bool, wide) -> torch.Tensor:
     return a @ b.T
 
 
+def matmul_compensated(a: torch.Tensor, b: torch.Tensor, *,
+                       chunk: int = 512) -> torch.Tensor:
+    """``a @ b`` for a (M, K) and b (K, N), float32 or complex64, walked in
+    chunks of ``chunk`` contraction columns, each widened to
+    complex128/float64 and accumulated there; returns the operands'
+    promoted dtype (the JAX package's double-float scan, with native fp64
+    in place of TwoSum)."""
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    wide = _wide(out_dtype)
+    acc = torch.zeros((m, n), dtype=wide, device=a.device)
+    for s in range(0, k, chunk):
+        acc += a[:, s:s + chunk].to(wide) @ b[s:s + chunk].to(wide)
+    return acc.to(out_dtype)
+
+
 def rowdot_compensated(a: torch.Tensor, b: torch.Tensor, *,
                        chunk: int = CHUNK_ELEMS, conj_a: bool = False,
                        conj_b: bool = False) -> torch.Tensor:

@@ -88,13 +88,13 @@ def compiled_focus_stack(config: OpticsConfig, chunk: int = 4,
     """Cached (geometry, aberration stack, shifts, weights) -> (F, n, n)
     focal-stack callable, spectrum included, on the geometry's device: the
     JAX package's jitted pipeline as a plain function with the same
-    arguments (the ``focus`` CLI's entry, ROADMAP.md Queue 1 item 11)."""
-    if mask3d is not None:
-        raise NotImplementedError("mask3d is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 10 (mask-3D)")
+    arguments (the ``focus`` CLI's entry, ROADMAP.md Queue 1 item 3);
+    ``mask3d`` turns the geometry into its thick-mask transmission first."""
     from .fraunhofer import mask_spectrum
 
     def run(geometry, aberrations_stack, shifts, weights):
+        if mask3d is not None:
+            geometry = mask3d.apply(geometry, config)
         spectrum = mask_spectrum(geometry, config, solver=solver)
         return through_focus_images(
             spectrum, aberrations_stack, shifts, weights, config,

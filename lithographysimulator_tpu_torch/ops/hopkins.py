@@ -29,7 +29,9 @@ which costs one transform per kernel instead of one per source point.
 Probes come from a ``torch.Generator`` seeded with ``seed`` on the pupil's
 device; the JAX package's ``jax.random`` draws other numbers from the same
 seed, so randomized builds agree with it in eigenvalues and images, not in
-kernels. The film builds are ROADMAP.md Queue 1 item 10.
+kernels. The per-slab film builds (``simulate.film_socs_kernels``) run
+on :func:`randomized_socs_components`. The int8 apply is differentiable:
+its backward recomputes through the float32 path (:mod:`.abbe`).
 """
 
 from __future__ import annotations
@@ -204,6 +206,8 @@ def socs_image(
     ``matmul``."""
     if solver not in ("gau23", "direct"):
         raise ValueError(f"unknown socs solver {solver!r}")
+    if engine == "pallas":  # the JAX package's alias of int8
+        engine = "int8"
     explicit_int8 = engine in ("int8", "int8_fast")
     kernels = socs.kernels
     device = kernels.device
@@ -228,9 +232,9 @@ def socs_image(
         # serves every width, so both sizes run the int8 row kernel
         # (ROADMAP.md Queue 3, R3).
         t_full = _zoom_dft_kernel(n, fft_size)
-        t_limbs, t_scales = prepare_t0_limbs(
-            torch.as_tensor(t_full.real, dtype=torch.float32, device=device),
-            torch.as_tensor(t_full.imag, dtype=torch.float32, device=device))
+        t_re = torch.as_tensor(t_full.real, dtype=torch.float32, device=device)
+        t_im = torch.as_tensor(t_full.imag, dtype=torch.float32, device=device)
+        t_limbs, t_scales = prepare_t0_limbs(t_re, t_im)
         # each chunk's window is the whole kernel and spectrum: zero starts
         starts = torch.as_tensor(
             check_window_starts(np.zeros((chunk, 4), np.int32), n,
@@ -244,9 +248,10 @@ def socs_image(
     for c in range(0, socs.rank, chunk):
         ls = lams[c:c + chunk]
         if solver == "gau23" and engine in ("int8", "int8_fast"):
-            _intensity_windowed_int8(kernels[c:c + chunk], spectrum,
-                                     starts[:len(ls)], n, t_limbs, t_scales,
-                                     ls, fast=engine == "int8_fast", out=acc)
+            acc = _intensity_windowed_int8(
+                kernels[c:c + chunk], spectrum, starts[:len(ls)], n, t_re,
+                t_im, t_limbs, t_scales, ls, fast=engine == "int8_fast",
+                out=acc)
             continue
         prod = kernels[c:c + chunk] * spectrum
         if solver == "direct":

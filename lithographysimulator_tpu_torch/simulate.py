@@ -1,13 +1,15 @@
 """High-level one-call simulation pipeline.
 
-Port of ``lithographysimulator_tpu/simulate.py`` for thin-mask imaging: the
-exact Abbe solvers (``gau23`` and ``direct``) and the SOCS (Hopkins) fast
-path (``socs``), scalar or vector (Jones pupil), monochromatic or
-polychromatic (finite laser bandwidth), with scanner perturbations applied
-to the image, for one mask (:func:`simulate`) or a batch under one optical
+Port of ``lithographysimulator_tpu/simulate.py``: the exact Abbe solvers
+(``gau23`` and ``direct``) and the SOCS (Hopkins) fast path (``socs``),
+scalar or vector (Jones pupil), monochromatic or polychromatic (finite
+laser bandwidth), thin or thick mask (``mask3d``, applied to the geometry
+before the spectrum on every path), with scanner perturbations applied to
+the image, for one mask (:func:`simulate`) or a batch under one optical
 setup (:func:`simulate_batch`), returning the aerial image and the same run
-report. ``mask3d`` raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item.
+report; and the rigorous image in the resist film, exact
+(:func:`film_stack_images`) or through per-slab SOCS kernels
+(:func:`film_socs_kernels`, :func:`film_socs_stack`).
 """
 
 from __future__ import annotations
@@ -46,12 +48,25 @@ class SimulationResult:
     report: dict
 
 
-def _check_options(solver, mask3d) -> None:
+def _check_solver(solver) -> None:
     if solver not in ("gau23", "direct", "socs"):
         raise ValueError(f"unknown solver {solver!r}")
-    if mask3d is not None:
-        raise NotImplementedError("mask3d is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 10 (mask-3D)")
+
+
+def _thick(geometry: torch.Tensor, config: OpticsConfig, mask3d):
+    """The geometry the spectrum is taken of: ``mask3d.apply`` of it for a
+    thick-mask model (:mod:`.ops.mask3d`), itself for the thin mask."""
+    return geometry if mask3d is None else mask3d.apply(geometry, config)
+
+
+def _mask3d_report(mask3d) -> str:
+    """The report's ``mask3d`` string, as the JAX package writes it."""
+    if mask3d is None:
+        return "thin"
+    if hasattr(mask3d, "beta_h"):
+        return (f"BL(w={mask3d.width_nm}nm, bh={mask3d.beta_h}, "
+                f"bv={mask3d.beta_v})")
+    return f"EdgeKernel(w={mask3d.width_nm}nm, K={mask3d.k})"
 
 
 def _polarization_key(polarization):
@@ -181,15 +196,15 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
                          aberrations: np.ndarray, rank: int | str, *, device,
                          polarization=None, apodize: bool = True,
                          chromatic=None, tolerance: float | None = None,
-                         geometry=None, chunk: int = 4):
+                         geometry=None, chunk: int = 4, mask3d=None):
     """Returns ``(socs, pupil, energy, bound)`` for a build on ``device``
     (scalar, vector with ``polarization``, polychromatic with
     ``chromatic``). ``rank='auto'`` grows the rank from 32 by doubling until
     the kept eigenvalues capture 99.9% of the trace or, with
     ``tolerance``, until :func:`..ops.hopkins.socs_image_nrms_bound` of
     the mask ``geometry`` is <= tolerance (its apply uses the caller's
-    ``chunk``; the bound does not depend on normalization). ``bound`` is
-    None unless tolerance mode ran."""
+    ``chunk`` and ``mask3d``; the bound does not depend on normalization).
+    ``bound`` is None unless tolerance mode ran."""
     device = torch.device(device)
     if tolerance is not None and geometry is None:
         raise ValueError("socs tolerance mode needs the mask geometry "
@@ -203,7 +218,8 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
     key = (config, src_np.tobytes(), aberrations.tobytes(), rank, polarization,
            apodize, chromatic, tolerance,
            None if geo is None else geo.tobytes(),
-           chunk if tolerance is not None else None, str(device))
+           chunk if tolerance is not None else None,
+           mask3d if tolerance is not None else None, str(device))
     hit = _SOCS_BUILD_CACHE.get(key)
     if hit is not None:
         return hit
@@ -228,8 +244,9 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
 
     bound = None
     if tolerance is not None:
-        spectrum = mask_spectrum(torch.as_tensor(geo, device=device), config,
-                                 solver="gau23")
+        spectrum = mask_spectrum(
+            _thick(torch.as_tensor(geo, device=device), config, mask3d),
+            config, solver="gau23")
 
         def bound_of(socs):
             image = socs_image(spectrum, socs, config, chunk=chunk)
@@ -298,8 +315,9 @@ def _normalized(image: torch.Tensor, total: float) -> torch.Tensor:
 
 
 def _socs_apply(geometry, socs: SOCSKernels, config, *, chunk, normalize,
-                w_sum):
-    spectrum = mask_spectrum(geometry, config, solver="gau23")
+                w_sum, mask3d=None):
+    spectrum = mask_spectrum(_thick(geometry, config, mask3d), config,
+                             solver="gau23")
     image = socs_image(spectrum, socs, config, chunk=chunk)
     return (_normalized(image, w_sum) if normalize else image), spectrum
 
@@ -320,6 +338,7 @@ def simulate(
     chromatic=None,
     perturb=None,
     mask3d=None,
+    block: bool = True,
 ) -> SimulationResult:
     """Run the pipeline on ``device`` ('cuda' on the card, 'cpu' in tests).
     ``source_map`` is a host (n, n) weight map (e.g. from
@@ -346,8 +365,13 @@ def simulate(
     planes on the exact solvers, one polychromatic kernel set on
     ``solver='socs'``; it composes with ``polarization``. ``perturb`` (an
     :class:`..ops.perturb.ImagePerturbation`) applies stage blur and flare
-    to the image last, on every solver."""
-    _check_options(solver, mask3d)
+    to the image last, on every solver. ``mask3d`` (a
+    :class:`..ops.mask3d.BoundaryLayer` or
+    :class:`..ops.mask3d.EdgeKernelM3D`; None is the thin mask) turns the
+    geometry into its effective thick-mask transmission before the
+    spectrum, on every solver. ``block`` is accepted for the JAX package's
+    signature and does nothing: the port always synchronizes."""
+    _check_solver(solver)
     if socs_tolerance is not None and (solver != "socs" or socs_rank != "auto"):
         raise ValueError("socs_tolerance needs solver='socs' with "
                          "socs_rank='auto' (a pinned rank cannot honor a "
@@ -366,9 +390,11 @@ def simulate(
         socs, pupil, energy, bound = _socs_kernels_cached(
             config, src_np, aberrations, socs_rank, device=device,
             polarization=polarization, apodize=apodize, chromatic=chromatic,
-            tolerance=socs_tolerance, geometry=mask.geometry, chunk=chunk)
+            tolerance=socs_tolerance, geometry=mask.geometry, chunk=chunk,
+            mask3d=mask3d)
         image, spectrum = _socs_apply(geometry, socs, config, chunk=chunk,
-                                      normalize=normalize, w_sum=w_sum)
+                                      normalize=normalize, w_sum=w_sum,
+                                      mask3d=mask3d)
         if bound is None:
             # the accuracy class of the run, from pieces already in hand
             total_weight = w_sum if normalize else None
@@ -393,7 +419,8 @@ def simulate(
             socs_report["socs_tolerance"] = float(socs_tolerance)
     else:
         shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
-        spectrum = mask_spectrum(geometry, config, solver=solver)
+        spectrum = mask_spectrum(_thick(geometry, config, mask3d), config,
+                                 solver=solver)
         pupil = pupil_function(aberrations, config, device=device)
         max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
         image = _exact_image(
@@ -423,7 +450,7 @@ def simulate(
         "chromatic": (f"{chromatic.shape} E95={chromatic.bandwidth_pm}pm "
                       f"x{chromatic.samples} @ {chromatic.focus_nm_per_pm}"
                       "nm/pm" if chromatic is not None else "monochromatic"),
-        "mask3d": "thin",
+        "mask3d": _mask3d_report(mask3d),
         "wall_clock_s": elapsed,
     }
     if perturb is not None and perturb.active:
@@ -451,15 +478,17 @@ def simulate_batch(
     chromatic=None,
     perturb=None,
     mask3d=None,
+    block: bool = True,
 ) -> torch.Tensor:
     """(B, n, n) aerial images on ``device`` for a batch of (B, n, n) mask
     geometries under one optical setup: the source points and SOCS kernels
     are made once per batch, not once per mask (the JAX package's vmap over
     masks is a loop here). ``polarization``, ``apodize``, ``chromatic`` and
     ``perturb`` act as in :func:`simulate`; the flare background is each
-    image's own mean (ROADMAP.md Queue 3, R7). Synchronized before it
-    returns."""
-    _check_options(solver, mask3d)
+    image's own mean (ROADMAP.md Queue 3, R7); ``mask3d`` applies to each
+    geometry. Synchronized before it returns (``block`` does nothing, as
+    in :func:`simulate`)."""
+    _check_solver(solver)
     device = torch.device(device)
     geometries = to_tensor(geometries, device=device, dtype=torch.float32)
     if geometries.ndim != 3:
@@ -474,14 +503,16 @@ def simulate_batch(
         w_sum = float(src_np.sum(dtype=np.float64))
         for b, geometry in enumerate(geometries):
             images[b] = _socs_apply(geometry, socs, config, chunk=chunk,
-                                    normalize=normalize, w_sum=w_sum)[0]
+                                    normalize=normalize, w_sum=w_sum,
+                                    mask3d=mask3d)[0]
     else:
         pts = source_points(src_np)
         shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
         max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
         for b, geometry in enumerate(geometries):
             images[b] = _exact_image(
-                mask_spectrum(geometry, config, solver=solver), aberrations,
+                mask_spectrum(_thick(geometry, config, mask3d), config,
+                              solver=solver), aberrations,
                 shifts, weights, config, device=device, solver=solver,
                 chunk=chunk, normalize=normalize, max_abs_shift=max_abs_shift,
                 polarization=polarization, apodize=apodize,
@@ -491,3 +522,170 @@ def simulate_batch(
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return images
+
+
+def _film_depths(depths_nm, resist) -> tuple:
+    """The slab depths of a film call; ``resist`` is read only for its
+    ``depths_nm``."""
+    if depths_nm is None:
+        if resist is None:
+            raise ValueError("pass depths_nm or a DepthResist via resist=")
+        depths_nm = resist.depths_nm
+    return tuple(float(z) for z in np.atleast_1d(depths_nm))
+
+
+def _mask_geometry(mask, device) -> torch.Tensor:
+    geometry = mask.geometry if hasattr(mask, "geometry") else mask
+    return to_tensor(geometry, device=device)
+
+
+def film_stack_images(
+    mask,
+    source_map,
+    aberrations=None,
+    *,
+    device,
+    config: OpticsConfig | None = None,
+    wafer_stack,
+    depths_nm=None,
+    resist=None,
+    polarization=None,
+    apodize: bool = True,
+    solver: Literal["gau23", "direct"] = "gau23",
+    chunk: int = 4,
+    normalize: bool = True,
+    engine: str = "auto",
+    mask3d=None,
+    block: bool = True,
+) -> torch.Tensor:
+    """(nz, n, n) rigorous in-film exposure stack on ``device``: the image
+    inside the resist of ``wafer_stack`` (:mod:`.ops.filmstack`), slab by
+    slab. Every plane wave of the Abbe sum refracts into the resist and
+    interferes with its reflection off the underlayers and the substrate;
+    slab z is ``sum_c AbbeIntensity(pupil * mult[z, c])`` over the
+    component multipliers of
+    :func:`.ops.filmstack.film_component_multipliers` (one for
+    ``polarization=None``, the scalar TE-Airy image; three a state for a
+    Jones spec). ``depths_nm`` defaults to ``resist.depths_nm``.
+    ``mask3d`` composes: thick-mask physics at the object side, thick-film
+    physics at the image side. ``block`` does nothing (the device is
+    synchronized before this returns)."""
+    from .ops.filmstack import film_component_multipliers
+
+    if config is None:
+        config = mask.config
+    device = torch.device(device)
+    depths = _film_depths(depths_nm, resist)
+    src_np, aberrations = _host_inputs(source_map, aberrations)
+    polarization = _polarization_key(polarization)
+    pts = source_points(src_np)
+    shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
+    max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
+    mult = film_component_multipliers(config, wafer_stack, depths,
+                                      polarization=polarization,
+                                      apodize=apodize)  # (nz, C, n, n)
+    geometry = _thick(_mask_geometry(mask, device), config, mask3d)
+    spectrum = mask_spectrum(geometry, config, solver=solver)
+    pupil = pupil_function(aberrations, config, device=device)
+    stack = torch.empty((len(depths), config.n, config.n), dtype=torch.float32,
+                        device=device)
+    for z in range(len(depths)):
+        mult_z = torch.as_tensor(mult[z], dtype=torch.complex64, device=device)
+        total = torch.zeros((config.n, config.n), dtype=torch.float32,
+                            device=device)
+        for mult_c in mult_z:
+            total = total + abbe_image_points(
+                spectrum, pupil * mult_c, shifts, weights, config,
+                device=device, solver=solver, chunk=chunk,
+                normalize=normalize, engine=engine,
+                max_abs_shift=max_abs_shift)
+        stack[z] = total
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return stack
+
+
+def film_socs_kernels(
+    source_map,
+    aberrations=None,
+    *,
+    device,
+    config: OpticsConfig,
+    wafer_stack,
+    depths_nm=None,
+    resist=None,
+    polarization=None,
+    apodize: bool = True,
+    rank: int = 64,
+    power_iters: int = 2,
+    warm_iters: int = 1,
+) -> list:
+    """Per-slab SOCS kernel sets on ``device`` for the rigorous image in
+    the resist: build once, then every mask and dose reuses them at
+    :func:`.ops.hopkins.socs_image` cost a slab. Each slab's summed TCC
+    stacks the film-modified component pupils (the multipliers times the
+    aberrated pupil) through
+    :func:`.ops.hopkins.randomized_socs_components`. Slab 0 is built cold
+    at ``power_iters``; each deeper slab restarts from the previous slab's
+    Ritz basis at ``warm_iters``, since adjacent slabs differ only by the
+    in-film propagation phase. Returns a list of
+    :class:`.ops.hopkins.SOCSKernels`, top slab first; apply with
+    :func:`film_socs_stack`."""
+    from .ops.filmstack import film_component_multipliers
+    from .ops.hopkins import randomized_socs_components
+
+    device = torch.device(device)
+    depths = _film_depths(depths_nm, resist)
+    src_np, aberrations = _host_inputs(source_map, aberrations)
+    mult = film_component_multipliers(config, wafer_stack, depths,
+                                      polarization=_polarization_key(
+                                          polarization),
+                                      apodize=apodize)  # (nz, C, n, n)
+    pupil = pupil_function(aberrations, config, device=device)
+    src = to_tensor(src_np, device=device, dtype=torch.float32)
+    kernels = []
+    basis = None
+    for z in range(len(depths)):
+        comps = torch.as_tensor(mult[z], dtype=torch.complex64,
+                                device=device) * pupil[None]
+        weights = torch.ones((comps.shape[0],), dtype=torch.float32,
+                             device=device)
+        socs, basis = randomized_socs_components(
+            comps, weights, src, config, rank=rank,
+            power_iters=power_iters if basis is None else warm_iters,
+            init_basis=basis, return_basis=True)
+        kernels.append(socs)
+    return kernels
+
+
+def film_socs_stack(
+    mask,
+    kernels: list,
+    *,
+    config: OpticsConfig | None = None,
+    source_total=None,
+    chunk: int = 4,
+    normalize: bool = True,
+    mask3d=None,
+    block: bool = True,
+) -> torch.Tensor:
+    """Apply per-slab film-SOCS kernel sets (:func:`film_socs_kernels`):
+    the (nz, n, n) in-film exposure on the kernels' device at SOCS cost.
+    ``source_total`` (the sum of source weights) normalizes like the exact
+    path and is required when ``normalize=True``. ``block`` does nothing
+    (the device is synchronized before this returns)."""
+    if config is None:
+        config = mask.config
+    if normalize and source_total is None:
+        raise ValueError("normalize=True needs source_total (sum of source "
+                         "weights) to match the exact path's scaling")
+    device = kernels[0].kernels.device
+    geometry = _mask_geometry(mask, device)
+    total = float(source_total) if source_total is not None else 1.0
+    planes = [_socs_apply(geometry, socs, config, chunk=chunk,
+                          normalize=normalize, w_sum=total, mask3d=mask3d)[0]
+              for socs in kernels]
+    stack = torch.stack(planes)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return stack

@@ -178,17 +178,21 @@ def test_engine_policy_and_slice_limits():
     assert pa.resolve_engine("auto", device="cpu") == "fft"
     assert pa.resolve_engine("auto", device=torch.device("cuda")) == "int8"
     assert pa.resolve_engine("int8_fast", device="cpu") == "int8_fast"
+    assert pa.resolve_engine("pallas", device="cpu") == "int8"
     with pytest.raises(ValueError):
         pa.resolve_engine("warp9", device="cpu")
     mask = pt.demo_bars(pt.OpticsConfig(pixel_number=32), device="cpu")
     src = pt.LightSource(mask.config).classical()
-    # of the JAX package's options only mask3d is still to port
-    for kw in (dict(mask3d=1), dict(solver="socs", mask3d=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pt.simulate(mask, src, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pt.simulate_batch(mask.geometry[None], mask.config, src, device="cpu",
-                          mask3d=1)
+    # every option of the JAX package is ported: mask3d takes a model with
+    # an .apply (anything else is refused), on every solver and the batch
+    bl = pt.BoundaryLayer(width_nm=8.0, beta_h=-0.2, beta_v=0.1j)
+    for kw in (dict(), dict(solver="socs", socs_rank=8)):
+        res = pt.simulate(mask, src, device="cpu", mask3d=bl, **kw)
+        assert res.report["mask3d"].startswith("BL(w=8.0nm")
+        with pytest.raises(AttributeError):
+            pt.simulate(mask, src, device="cpu", mask3d=1, **kw)
+    assert pt.simulate_batch(mask.geometry[None], mask.config, src,
+                             device="cpu", mask3d=bl).shape == (1, 32, 32)
     with pytest.raises(ValueError, match="unknown polarization"):
         pt.simulate(mask, src, device="cpu", polarization="z")
     with pytest.raises(ValueError, match="unknown solver"):
@@ -198,11 +202,20 @@ def test_engine_policy_and_slice_limits():
 
 
 def test_int8_engine_is_forward_only():
+    """Only the int8 engine's forward runs on the limb kernels: its
+    gradient is the float32 recompute's (tests/test_torch_int8_grad.py),
+    so it equals the matmul engine's autograd."""
     cfg, spec, pup, shifts, weights = _inputs(32, 3)
-    w = torch.as_tensor(weights, dtype=torch.float32).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        pa.abbe_image_points(spec, pup, shifts, w, config_from_jax(cfg),
-                             device="cpu", engine="int8")
+    grads = []
+    for engine in ("int8", "matmul"):
+        w = torch.as_tensor(weights, dtype=torch.float32).requires_grad_()
+        img = pa.abbe_image_points(spec, pup, shifts, w, config_from_jax(cfg),
+                                   device="cpu", engine=engine)
+        img.sum().backward()
+        grads.append(w.grad.numpy())
+    assert np.abs(grads[1]).max() > 0
+    np.testing.assert_allclose(grads[0], grads[1], rtol=0,
+                               atol=1e-6 * np.abs(grads[1]).max())
 
 
 def test_cli_simulate_writes_npy(tmp_path):
@@ -240,6 +253,12 @@ def test_import_leaves_jax_out():
             "lithographysimulator_tpu_torch.ops.vector, "
             "lithographysimulator_tpu_torch.ops.focus, "
             "lithographysimulator_tpu_torch.ops.perturb, "
+            "lithographysimulator_tpu_torch.ops.mask3d, "
+            "lithographysimulator_tpu_torch.ops.rcwa, "
+            "lithographysimulator_tpu_torch.ops.rcwa2d, "
+            "lithographysimulator_tpu_torch.ops.filmstack, "
+            "lithographysimulator_tpu_torch.ops.compensated, "
+            "lithographysimulator_tpu_torch.simulate, "
             "lithographysimulator_tpu_torch.utils.artifacts, "
             "lithographysimulator_tpu_torch.ops.kernels.build; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -170,8 +170,16 @@ def test_through_focus_images_match_jax(focus_inputs, masks):
     again = _np(run(masks[1].geometry, stack, shifts, weights))
     for f in range(3):
         assert normalized_rms(again[f], exact[f]) < TOL
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pf.compiled_focus_stack(PCFG, mask3d=1)
+    # the thick mask applies before the spectrum, as in the JAX package
+    bl = jt.BoundaryLayer(width_nm=8.0, beta_h=-0.2 + 0.1j, beta_v=-0.3)
+    ref = np.asarray(jf.compiled_focus_stack(CFG, max_abs_shift=ms, mask3d=bl)(
+        masks[0].geometry, stack, shifts, weights))
+    thick = _np(pf.compiled_focus_stack(
+        PCFG, max_abs_shift=ms, mask3d=pt.BoundaryLayer(
+            width_nm=8.0, beta_h=-0.2 + 0.1j, beta_v=-0.3))(
+        masks[1].geometry, stack, shifts, weights))
+    for f in range(3):
+        assert normalized_rms(thick[f], ref[f]) < TOL
 
 
 def test_through_focus_socs_matches_jax_exact(focus_inputs):

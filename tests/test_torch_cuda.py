@@ -253,3 +253,68 @@ def test_chromatic_socs_int8_apply_matches_complex128():
     fields = t @ (socs.kernels * spectrum).to(torch.complex128) @ t.T
     acc = torch.sum(socs.eigenvalues.double()[:, None, None] * fields.abs() ** 2, dim=0)
     assert _nrms(img.cpu(), _postprocess_gau23(acc, cfg).cpu()) < TOL
+
+
+@pytest.mark.cuda
+def test_int8_gradient_matches_matmul_autograd():
+    """The int8 engine's gradient on the card (the four kernels forward,
+    the float32 recompute backward) against the matmul engine's autograd:
+    atol 1e-6 * max|g| (the JAX package's class, test_pallas_kernel.py);
+    the forward launches the kernels."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.abbe import _pad_points, source_points
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    cfg = lt.OpticsConfig(pixel_number=128)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    pts = source_points(src)
+    shifts, weights = _pad_points(pts.shifts, pts.weights, 4)
+    spectrum = lt.mask_spectrum(lt.demo_bars(cfg, device=dev).geometry, cfg)
+    pupil = lt.pupil_function([0, 0, 0.01, 0, 50], cfg, device=dev)
+    m = 0.5 + torch.rand((cfg.n, cfg.n), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    grads = {}
+    for engine in ("int8", "matmul"):
+        ik.reset_launch_counts()
+        s = spectrum.clone().requires_grad_()
+        p = pupil.clone().requires_grad_()
+        img = lt.abbe_image_points(s, p, shifts, weights, cfg, device=dev,
+                                   engine=engine)
+        (img * m).sum().backward()
+        grads[engine] = (s.grad, p.grad)
+        assert (min(ik.LAUNCHES.values()) > 0) == (engine == "int8")
+    for g8, g32 in zip(grads["int8"], grads["matmul"]):
+        scale = float(g32.abs().max())
+        assert scale > 0 and float((g8 - g32).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_fit_boundary_layer_runs_on_the_kernels():
+    """A few Adam steps of the M3D fit on the auto engine (int8 on the
+    card) launch the kernels and follow the matmul engine's fit."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.abbe import _pad_points, source_points
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    cfg = lt.OpticsConfig(pixel_number=128)
+    src = lt.LightSource(cfg, sigma_out=0.5).classical()
+    pts = source_points(src)
+    shifts, weights = _pad_points(pts.shifts, pts.weights, 8)
+    mask = lt.demo_bars(cfg, device=dev)
+    ab = np.array([0, 0, 0, 0, 50.0], np.float32)
+    true = lt.BoundaryLayer(width_nm=8.0, beta_h=-0.25 + 0.15j, beta_v=0.1 - 0.2j)
+    target = lt.simulate(mask, src, ab, device=dev, normalize=True,
+                         mask3d=true).image
+    fits = {}
+    for engine in ("auto", "matmul"):
+        ik.reset_launch_counts()
+        fits[engine] = lt.fit_boundary_layer(
+            target, mask.geometry, shifts, weights, cfg, device=dev, steps=4,
+            aberrations=ab, engine=engine)
+        assert (min(ik.LAUNCHES.values()) > 0) == (engine == "auto")
+    (bl8, hist8), (bl32, hist32) = fits["auto"], fits["matmul"]
+    assert hist8[-1] < hist8[0]
+    np.testing.assert_allclose(hist8, hist32, rtol=1e-4)
+    assert abs(bl8.beta_v - bl32.beta_v) < 1e-4
