@@ -125,7 +125,42 @@ apart from phases 3-16:
 21. as phase 6, for phases 18-20, and each int8 fit of phase 20 by itself
     launched every kernel (no silent matmul fallback).
 
-Run time on one H100 is about 4.5 minutes, most of it phase 4's int8 run,
+The resist over the int8-kernel aerial images, at phase 4's configuration;
+each phase prints its wall time, its device-memory peak and its int8
+launches, and fails if it launched a kernel where none was expected or
+none where some were:
+
+22. deterministic resist on the rank-256 SOCS image (int8 apply):
+    ResistModel blur, develop and develop_binary, MackResist, the CD
+    tables and exposure_latitude; the card's blurred field within 1e-6 of
+    a float64 numpy FFT blur on the host, and its CDs equal to the host's
+    (pixels that differ must lie within 1e-5 of the threshold);
+23. the stochastic ensemble in bench.py's form (dose 20 photons/nm^2,
+    diffusion 8 nm, threshold 0.3, PAG 5/nm^2), no int8 launch:
+    exposure_trials (16 trials, trial_chunk 8, median of 3 seeds) as
+    stochastic_device_trials_per_s, exposure_summary (16 trials, row_step
+    2, read back) as stochastic_e2e_trials_per_s, stochastic_ensemble (64
+    trials, psd=True) with LER, LWR, LCDU, defect rates and the PSD fit;
+    the same seed gives the same fields and trial i the same field under
+    trial_chunk 8 and 16, bit for bit; at 1e6 photons/nm^2 (no PAG) the
+    mean field within 0.01 of deterministic_field; print probabilities in
+    [0, 1];
+24. film_socs_kernels (nz 8, rank 96) and film_socs_stack on resist over
+    BARC on Si, then DepthResist.rigorous().develop_profile_binary (56
+    eikonal sweeps at (8, 1024, 1024), no grad) with the sweep rate beside
+    its bound (bytes a sweep, op by op, at 3.35 TB/s); with laterally
+    uniform slowness the arrival times equal the cumulative vertical
+    integral to 1e-6; an (8, 128, 128) crop solved on the card equals the
+    float32 CPU solve to 1e-6; stochastic_volume_ensemble (8 trials); a
+    one-slab deprotection_volume equals deprotection, bit for bit;
+25. calibrate_resist on three 256^2 gauges the card imaged recovers the
+    hidden threshold and diffusion (0.01, 1.5 nm: tests/test_calibrate.py);
+    the focus, resist3d (with and without --film), stochastic and
+    calibrate subcommands at 256^2 with --device cuda, in process, each
+    exiting 0 with its JSON;
+26. the launches of phases 22-25, summed (each phase checked in 22-25).
+
+Run time on one H100 is about 5 minutes, most of it phase 4's int8 run,
 phase 5's host oracle, phase 8's exact image, phases 13 and 15's exact
 images, and phase 20's fits and film slabs.
 
@@ -144,8 +179,8 @@ window_product_limbs the bytes read are the union of this run's windows.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is nvidia-smi's name and power limit, and the one before that lists each
 kernel with its launches, error, times and bound (launches on phases 3-5,
-socs_launches on phases 8-11, vector_launches on phases 13-16 and
-m3d_launches on phases 18-20; ms,
+socs_launches on phases 8-11, vector_launches on phases 13-16,
+m3d_launches on phases 18-20 and resist_launches on phases 22-25; ms,
 library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
 and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 """
@@ -1204,6 +1239,358 @@ def phase_fits_film(torch, lt) -> list:
     return fit_launches
 
 
+# ---------------------------------------------------------------------------
+# Resist, the eikonal develop, stochastic ensembles and calibration
+# ---------------------------------------------------------------------------
+
+def _phase_start(torch, ik) -> float:
+    """Reset the launch counts and the memory peak; the phase's start."""
+    ik.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def _phase_end(torch, ik, phase: int, t0: float, launches: dict,
+               expect_launches: bool) -> None:
+    """Print the phase's wall time and memory peak, add its launches to
+    ``launches`` and fail if it launched int8 kernels where none were
+    expected, or none where some were."""
+    torch.cuda.synchronize()
+    counts = dict(ik.LAUNCHES)
+    log(f"  phase {phase}: wall {time.perf_counter() - t0:.3f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, int8 "
+        f"launches {counts}")
+    if expect_launches and min(counts.values()) <= 0:
+        raise AssertionError(f"phase {phase} should run the int8 kernels: {counts}")
+    if not expect_launches and max(counts.values()) > 0:
+        raise AssertionError(f"phase {phase} should launch no int8 kernel: {counts}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def _same_cds(tag: str, ours: np.ndarray, ref: np.ndarray, field: np.ndarray,
+              threshold: float, cfg, resist) -> None:
+    """The CD tables of two binary profiles are equal, unless the pixels
+    where they differ all lie within 1e-5 of the threshold in ``field``."""
+    a = resist.feature_table(ours, cfg)
+    b = resist.feature_table(ref, cfg)
+    same = (len(a["row"]) == len(b["row"])
+            and np.array_equal(a["width_nm"], b["width_nm"]))
+    differ = ours != ref
+    near = np.abs(field - threshold) <= 1e-5
+    log(f"  {tag}: {len(a['row'])} features, CD tables "
+        f"{'equal' if same else 'differ'}; {int(differ.sum())} pixels differ, "
+        f"{int((differ & ~near).sum())} of them farther than 1e-5 from the "
+        "threshold")
+    if (differ & ~near).any() or (not same and not differ.any()):
+        raise AssertionError(f"{tag}: CDs differ from the host's")
+
+
+def phase_resist(torch, lt, ik, launches: dict):
+    """Phase 22: deterministic resist on the rank-256 SOCS image. Returns
+    the image for phase 23."""
+    from lithographysimulator_tpu_torch.models import resist
+    from lithographysimulator_tpu_torch.models.calibrate import _blur_np
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    t0 = _phase_start(torch, ik)
+    res = lt.simulate(mask, src, solver="socs", socs_rank=SOCS_RANK,
+                      device="cuda")
+    image = res.image / res.image.max()
+    model = lt.ResistModel(threshold=0.3, steepness=50.0, diffusion_nm=10.0)
+    (blurred, soft, hard), t = _timed(torch, lambda: (
+        model.blur(image, cfg), model.develop(image, cfg),
+        model.develop_binary(image, cfg)))
+    log(f"[phase 22] 1024^2 resist on the rank-{SOCS_RANK} SOCS image (int8 "
+        f"apply): ResistModel blur + develop + develop_binary {t:.4f} s")
+    host = image.cpu().numpy()
+    ref = _blur_np(host.astype(np.float64), model.diffusion_nm, cfg.pixel_size)
+    check("ResistModel.blur on the card vs float64 numpy blur on the host",
+          nrms(blurred.cpu().numpy(), ref), TOL_MATMUL)
+    field = ref / ref.max()
+    if not 0.0 < float(soft.mean()) < 1.0:
+        raise AssertionError(f"sigmoid develop out of range: {float(soft.mean())}")
+    _same_cds("ResistModel.develop_binary vs float64 host threshold",
+              hard.cpu().numpy(), (field > model.threshold).astype(np.float32),
+              field, model.threshold, cfg, resist)
+    cd_card = lt.feature_table(blurred / blurred.max(), cfg,
+                               threshold=model.threshold)
+    cd_host = lt.feature_table(field, cfg, threshold=model.threshold)
+    if len(cd_card["row"]) != len(cd_host["row"]):
+        raise AssertionError("subpixel feature tables differ in length")
+    dcd = float(np.abs(cd_card["width_nm"] - cd_host["width_nm"]).max())
+    check("subpixel CDs of the card field vs the float64 host field (nm)",
+          dcd, 1e-3)
+    log(f"  CD at the center row: {lt.critical_dimension(hard, cfg):.3f} nm; "
+        f"{len(cd_card['row'])} features, mean subpixel CD "
+        f"{cd_card['width_nm'].mean():.4f} nm")
+    mack = lt.MackResist()
+    (mdev, mbin), t = _timed(torch, lambda: (mack.develop(image),
+                                             mack.develop_binary(image)))
+    log(f"  MackResist develop + develop_binary: {t:.4f} s, cleared fraction "
+        f"{float(mbin.mean()):.4f}")
+    doses = [0.8, 0.9, 1.0, 1.1, 1.25]
+    lat, t = _timed(torch, lambda: lt.exposure_latitude(image, cfg, model, doses))
+    log(f"  exposure_latitude over doses {doses}: CDs {lat} nm ({t:.3f} s)")
+    if not all(np.diff(lat) >= 0) or lat[-1] <= lat[0]:
+        raise AssertionError(f"CD does not grow with dose: {lat}")
+    _phase_end(torch, ik, 22, t0, launches, True)
+    return image, cfg
+
+
+def _median_rate(torch, fn, trials: int) -> tuple:
+    times = []
+    for seed in (1, 2, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(seed)
+        times.append(time.perf_counter() - t0)
+    return trials / float(np.median(times)), times
+
+
+def phase_stochastic(torch, lt, ik, launches: dict, image, cfg) -> None:
+    """Phase 23: the stochastic ensemble in bench.py's form."""
+    import dataclasses
+
+    from lithographysimulator_tpu_torch.models import stochastic as sto
+
+    t0 = _phase_start(torch, ik)
+    model = lt.StochasticResist(dose_photons_per_nm2=20.0, diffusion_nm=8.0,
+                                threshold=0.3, pag_per_nm2=5.0)
+    lt.exposure_trials(image, cfg, model, trials=2, seed=0)  # warm-up
+    device_rate, dev_times = _median_rate(torch, lambda s: lt.exposure_trials(
+        image, cfg, model, trials=16, seed=s, trial_chunk=8).mean(
+            dim=(1, 2)).cpu(), 16)
+    log(f"[phase 23] 1024^2 stochastic (dose 20/nm^2, diffusion 8 nm, PAG "
+        f"5/nm^2), 16 trials, trial_chunk 8: stochastic_device_trials_per_s "
+        f"{device_rate:.1f} (samples {[round(x, 4) for x in dev_times]} s)")
+
+    def summary(seed):
+        rows, runs, band = lt.exposure_summary(image, cfg, model, trials=16,
+                                               seed=seed, trial_chunk=8,
+                                               row_step=2)
+        return rows.cpu(), runs.cpu(), band.cpu()
+
+    e2e_rate, e2e_times = _median_rate(torch, summary, 16)
+    log(f"  exposure_summary, 16 trials, row_step 2, read back: "
+        f"stochastic_e2e_trials_per_s {e2e_rate:.1f} (samples "
+        f"{[round(x, 4) for x in e2e_times]} s)")
+    out, t = _timed(torch, lambda: lt.stochastic_ensemble(
+        image, cfg, model, trials=64, seed=0, psd=True))
+    psd = out["psd"]
+    log(f"  stochastic_ensemble, 64 trials, psd=True: {t:.3f} s ({64 / t:.1f} "
+        f"trials/s): LER {out['ler_nm']:.4f} nm, LWR {out['lwr_nm']:.4f} nm, "
+        f"LCDU {out['lcdu_nm']:.4f} nm, mean CD {out['mean_cd_nm']:.4f} nm "
+        f"(deterministic {out['deterministic_cd_nm']:.4f}), break rate "
+        f"{out['break_rate']:.3e}, bridge rate {out['bridge_rate']:.3e}; PSD "
+        f"{psd['n_edges']} edges, LER(3s) {psd['ler_3s_nm']:.4f} nm, xi "
+        f"{psd['corr_length_nm']:.3f} nm, alpha {psd['alpha']:.3f}, ACF length "
+        f"{psd['acf_corr_length_nm']:.3f} nm")
+    _, t_rows = _timed(torch, lambda: summary(0))
+    log(f"  of which the device summary of 16 trials with its read-back takes "
+        f"{t_rows:.3f} s")
+    prob = out["print_probability"]
+    if not (prob.shape == (cfg.n, cfg.n) and 0.0 <= prob.min()
+            and prob.max() <= 1.0):
+        raise AssertionError("print_probability outside [0, 1]")
+    log("  print_probability in [0, 1]: ok")
+    a = lt.exposure_trials(image, cfg, model, trials=4, seed=5, binary=False)
+    b = lt.exposure_trials(image, cfg, model, trials=4, seed=5, binary=False)
+    if not torch.equal(a, b) or torch.equal(a[0], a[1]):
+        raise AssertionError("the same seed did not give the same fields")
+    log("  same seed, same fields, bit for bit: ok")
+    c8 = lt.exposure_trials(image, cfg, model, trials=16, seed=5, binary=False,
+                            trial_chunk=8)
+    c16 = lt.exposure_trials(image, cfg, model, trials=16, seed=5, binary=False,
+                             trial_chunk=16)
+    if not torch.equal(c8, c16) or not torch.equal(c8[:4], a):
+        raise AssertionError("trial fields depend on trial_chunk")
+    log("  trial i equal under trial_chunk 8 and 16, bit for bit: ok")
+    del a, b, c8, c16
+    hi = dataclasses.replace(model, dose_photons_per_nm2=1e6, pag_per_nm2=0.0)
+    fields = lt.exposure_trials(image, cfg, hi, trials=4, seed=1, binary=False)
+    det = hi.deterministic_field(image, cfg)
+    check("1e6 photons/nm^2 (no PAG): max |mean field - deterministic_field|",
+          float((fields.mean(dim=0) - det).abs().max()), 0.01)
+    contours = (fields > hi.threshold).float()
+    check("1e6 photons/nm^2: mean |contour - deterministic contour|",
+          float((contours - (det > hi.threshold).float()).abs().mean()), 0.01)
+    del fields, contours
+    log(f"  trial streams: torch.Generator per trial, seeded from "
+        f"SeedSequence((seed, i)) ({sto.trial_generator.__name__})")
+    _phase_end(torch, ik, 23, t0, launches, False)
+
+
+def _sweep_bytes(torch, fn) -> int:
+    """Bytes one call of ``fn`` moves through memory, op by op: every
+    input of an operation that allocates an output read once and every
+    new output written once (views move nothing; a broadcast input counts
+    its storage)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    def size(t):
+        return min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [x for x in tree_flatten((args, kwargs))[0]
+                   if isinstance(x, torch.Tensor)]
+            ptrs = {x.untyped_storage().data_ptr() for x in ins}
+            new = [o for o in tree_flatten(out)[0] if isinstance(o, torch.Tensor)
+                   and o.untyped_storage().data_ptr() not in ptrs]
+            if new:
+                Count.total += sum(map(size, ins)) + sum(map(size, new))
+            return out
+
+    with torch.no_grad(), Count():
+        fn()
+    return Count.total
+
+
+def phase_resist3d(torch, lt, ik, launches: dict) -> None:
+    """Phase 24: 3-D resist on the film-SOCS stack: the eikonal develop,
+    its invariants and the volumetric ensemble."""
+    from lithographysimulator_tpu_torch.ops import eikonal
+    from lithographysimulator_tpu_torch.ops.filmstack import MATERIALS_193
+
+    n = 1024
+    cfg, mask, src = _headline_setup(lt, n)
+    t0 = _phase_start(torch, ik)
+    dr = lt.DepthResist(mack=lt.MackResist(thickness_nm=150.0), nz=8,
+                        absorbance_per_um=0.5, n_resist=1.71)
+    wafer = lt.WaferStack.from_resist(
+        dr, under_layers=((37.0, MATERIALS_193["barc"]),))
+    kernels, t_build = _timed(torch, lambda: lt.film_socs_kernels(
+        src, device="cuda", config=cfg, wafer_stack=wafer, resist=dr,
+        rank=FILM_RANK))
+    stack, t_apply = _timed(torch, lambda: lt.film_socs_stack(
+        mask, kernels, source_total=float(src.sum(dtype=np.float64))))
+    del kernels
+    log(f"[phase 24] film_socs_kernels, nz {dr.nz}, rank {FILM_RANK} (resist "
+        f"{wafer.n_resist} {wafer.thickness_nm} nm over 37 nm BARC on Si): "
+        f"{t_build:.3f} s; film_socs_stack (int8 applies): {t_apply:.4f} s")
+    rig = dr.rigorous()
+    sweeps = rig.nz + 48
+    profile, t = _timed(torch, lambda: rig.develop_profile_binary(
+        stack, pixel_size_nm=cfg.pixel_size))
+    log(f"  develop_profile_binary ({sweeps} sweeps at {tuple(stack.shape)}, "
+        f"no grad): {t:.3f} s; cleared fraction {float(profile.mean()):.4f}, "
+        f"through-print {float(profile.min(dim=0).values.mean()):.4f}")
+    rate = rig._rate(rig.latent(stack, pixel_size_nm=cfg.pixel_size))
+    slow = 1.0 / rate
+    spacing = (rig.mack.thickness_nm / rig.nz, cfg.pixel_size, cfg.pixel_size)
+    eikonal.arrival_times(slow, spacing, iterations=2)  # warm-up
+    arrival, t = _timed(torch, lambda: eikonal.arrival_times(
+        slow, spacing, iterations=sweeps))
+    per_sweep = _sweep_bytes(torch, lambda: eikonal.godunov_update(
+        arrival, slow, spacing))
+    fused = 3 * slow.numel() * 4
+    log(f"  eikonal arrival_times alone: {t:.4f} s, {sweeps / t:.1f} sweeps/s; "
+        f"one sweep moves {per_sweep / 1e9:.3f} GB op by op "
+        f"({per_sweep / slow.numel():.1f} B a voxel): bound "
+        f"{HBM_BYTES_S / per_sweep:.1f} sweeps/s at 3.35 TB/s, "
+        f"{100 * (sweeps / t) / (HBM_BYTES_S / per_sweep):.1f}% of it; a fused "
+        f"sweep (t and s read, t written) {HBM_BYTES_S / fused:.1f} sweeps/s")
+    uniform = slow.mean(dim=(1, 2), keepdim=True).expand_as(slow).contiguous()
+    t_unif = eikonal.arrival_times(uniform, spacing, iterations=sweeps,
+                                   lateral_factor=0.6)
+    expect = torch.cumsum(uniform[:, :1, :1].double() * spacing[0], dim=0)
+    check("vertical limit: uniform slowness vs cumulative integral (rel)",
+          float(((t_unif.double() - expect) / expect).abs().max()), 1e-6)
+    crop = slow[:, 448:576, 448:576].contiguous()
+    on_card = eikonal.arrival_times(crop, spacing, iterations=sweeps).cpu()
+    on_cpu = eikonal.arrival_times(crop.cpu(), spacing, iterations=sweeps)
+    check("(8, 128, 128) crop: card vs float32 CPU solve (rel to max)",
+          float((on_card - on_cpu).abs().max() / on_cpu.abs().max()), 1e-6)
+    del rate, slow, uniform, arrival, t_unif
+    model = lt.StochasticResist(dose_photons_per_nm2=20.0, diffusion_nm=8.0,
+                                threshold=0.3)
+    dz = dr.mack.thickness_nm / dr.nz
+    vol, t = _timed(torch, lambda: lt.stochastic_volume_ensemble(
+        stack, cfg, model, dz_nm=dz, trials=8, seed=0))
+    log(f"  stochastic_volume_ensemble, 8 trials on the (8, 1024, 1024) stack: "
+        f"{t:.3f} s; LER top {vol['ler_top_nm']:.4f} nm, bottom "
+        f"{vol['ler_bottom_nm']:.4f} nm, bottom bridge rate "
+        f"{vol['bridge_rate_bottom']:.3e}")
+    p = vol["print_probability"]
+    if not (p.shape == tuple(stack.shape) and 0.0 <= p.min() and p.max() <= 1.0):
+        raise AssertionError("volumetric print probability outside [0, 1]")
+    from lithographysimulator_tpu_torch.models.stochastic import trial_generator
+
+    flat = model.deprotection(trial_generator(0, 3, "cuda"), stack[3], cfg)
+    one = model.deprotection_volume(trial_generator(0, 3, "cuda"), stack[3:4],
+                                    cfg, dz_nm=dz)
+    if not torch.equal(one[0], flat):
+        raise AssertionError("one-slab deprotection_volume != deprotection")
+    log("  nz = 1 volume equals deprotection, bit for bit: ok")
+    _phase_end(torch, ik, 24, t0, launches, True)
+
+
+def _cli_report(cli, argv) -> dict:
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"CLI {argv[0]} exited {rc}")
+    return json.loads(out.getvalue().splitlines()[0])
+
+
+def phase_calibrate_cli(torch, lt, ik, launches: dict) -> None:
+    """Phase 25: calibration on gauges the card imaged, and the CLI."""
+    import tempfile
+
+    from lithographysimulator_tpu_torch import cli
+
+    t0 = _phase_start(torch, ik)
+    n = 256
+    cfg = lt.OpticsConfig(pixel_number=n)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    truth = lt.ResistModel(threshold=0.42, diffusion_nm=12.0)
+    gauges, t = _timed(torch, lambda: [lt.simulate(
+        lt.lines_and_spaces(cfg, line_width_px=p // 2, pitch_px=p,
+                            device="cuda"), src, device="cuda").image
+        for p in (8, 12, 24)])
+    measured = [lt.gauge_cd(truth, g, cfg) for g in gauges]
+    fit, t_fit = _timed(torch, lambda: lt.calibrate_resist(
+        gauges, measured, cfg, model=lt.ResistModel(threshold=0.3)))
+    log(f"[phase 25] 3 gauges imaged at {n}^2 (exact, int8): {t:.3f} s; "
+        f"calibrate_resist: {t_fit:.3f} s, {fit['evals']} evaluations, params "
+        f"{fit['params']}, rms {fit['rms_nm']:.5f} nm (hidden threshold 0.42, "
+        "diffusion 12 nm)")
+    if not (abs(fit["params"]["threshold"] - 0.42) <= 0.01
+            and abs(fit["params"]["diffusion_nm"] - 12.0) <= 1.5):
+        raise AssertionError(f"calibration missed the hidden model: {fit['params']}")
+    common = ["--device", "cuda", "--pixel-number", str(n), "--mask", "lines"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, g in enumerate(gauges):
+            paths.append(f"{tmp}/g{i}.npy")
+            np.save(paths[-1], g.cpu().numpy())
+        runs = {
+            "focus": ["focus", *common],
+            "resist3d": ["resist3d", *common, "--nz", "8"],
+            "resist3d --film": ["resist3d", *common, "--nz", "8", "--film",
+                                "--barc", "37", "--trials", "4"],
+            "stochastic": ["stochastic", *common, "--trials", "16", "--psd"],
+            "calibrate": ["calibrate", "--device", "cuda", "--pixel-number",
+                          str(n), "--images", *paths,
+                          "--cds", *[f"{c:.4f}" for c in measured]],
+        }
+        for tag, argv in runs.items():
+            report, t = _timed(torch, lambda: _cli_report(cli, argv))
+            log(f"  CLI {tag} ({t:.3f} s): {json.dumps(report)}")
+    _phase_end(torch, ik, 25, t0, launches, True)
+
+
 def _fits_launched(fit_launches) -> None:
     """Phase 21's check of the fits alone: each int8 fit launched every
     kernel, one window_product_limbs a row_limb_gemm (no matmul fallback)."""
@@ -1288,13 +1675,26 @@ def main() -> int:
     m3d_launches = _launched(ik, "18-20")
     _fits_launched(fit_launches)
 
+    resist_launches = {}  # phases 22-25, each counted and checked apart
+    image, cfg = phase_resist(torch, lt, ik, resist_launches)
+    phase_stochastic(torch, lt, ik, resist_launches, image, cfg)
+    del image
+    phase_resist3d(torch, lt, ik, resist_launches)
+    phase_calibrate_cli(torch, lt, ik, resist_launches)
+    log("[phase 26]")
+    log(f"  launches in phases 22-25: {resist_launches}")
+    if resist_launches["window_product_limbs"] != resist_launches["row_limb_gemm"]:
+        raise AssertionError("phases 22-25: window_product_limbs and "
+                             "row_limb_gemm launched unequally")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
          "launches": launches[k], **stats[k],
          "socs_launches": socs_launches[k],
          **{f"socs_{key}": v for key, v in socs_stats[k].items()},
          "vector_launches": vector_launches[k],
-         "m3d_launches": m3d_launches[k]}
+         "m3d_launches": m3d_launches[k],
+         "resist_launches": resist_launches[k]}
         for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ Aerial imaging with the exact Abbe solvers (Gau'23 and direct) and the
 SOCS (Hopkins) fast path, scalar or vector (Jones pupil), monochromatic or
 polychromatic, through focus, thin or thick mask (boundary-layer and
 edge-kernel M3D models, calibrated against the in-repo RCWA solver), in
-the resist film (the rigorous film stack), with scanner perturbations, on
+the resist film (the rigorous film stack), with scanner perturbations;
+then the resist (lumped, Mack, depth-resolved with the eikonal 3-D
+develop, stochastic Monte-Carlo ensembles, calibration, CD metrology) on
 a CUDA device through hand-written int8 limb kernels
 (``csrc/intensity_int8.cu``, differentiable: the backward recomputes in
 float32) or on the CPU through their plain PyTorch versions. Every entry
@@ -25,11 +27,23 @@ from .config import (DEMO_CONFIG, LaserSpectrum, OpticsConfig,
 from .grid import Grid, unit_disk_mask
 from .models.mask import (Mask, alternating_psm, attenuated_psm, contact_holes,
                           demo_bars, from_array, lines_and_spaces)
+from .models.calibrate import calibrate_resist, gauge_cd
 from .models.pupil import Pupil, pupil_function
+from .models.resist import (DepthResist, MackResist, ResistModel,
+                            aligned_edge_positions, cd_uniformity,
+                            critical_dimension, edge_placement_errors,
+                            exposure_latitude, feature_table, hotspots, meef,
+                            meef_table, nils_table, pattern_fidelity,
+                            process_window, swing_curve)
 from .models.source import LightSource
+from .models.stochastic import (StochasticResist, acf_correlation_length,
+                                edge_psd, exposure_summary, exposure_trials,
+                                fit_psd_model, stochastic_ensemble,
+                                stochastic_psd, stochastic_volume_ensemble)
 from .ops.abbe import (SourcePoints, abbe_image, abbe_image_points,
                        accumulate_intensity, source_points)
 from .ops.compensated import matmul_compensated
+from .ops.eikonal import arrival_times, godunov_update
 from .ops.filmstack import (WaferStack, film_component_multipliers,
                             film_depth_factors, open_frame_profile,
                             substrate_reflectance, underlayer_sweep)
@@ -63,6 +77,7 @@ __version__ = "0.1.0"
 __all__ = [
     "BoundaryLayer",
     "DEMO_CONFIG",
+    "DepthResist",
     "EdgeKernelM3D",
     "GratingLayer",
     "Grid",
@@ -70,29 +85,44 @@ __all__ = [
     "LaserSpectrum",
     "LightSource",
     "MASK_STACKS",
+    "MackResist",
     "Mask",
     "MaskStack",
     "OpticsConfig",
     "Pupil",
+    "ResistModel",
     "SOCSKernels",
     "SimulationResult",
     "SourcePoints",
+    "StochasticResist",
     "WaferStack",
     "WavelengthScaling",
     "abbe_image",
     "abbe_image_points",
     "accumulate_intensity",
+    "acf_correlation_length",
+    "aligned_edge_positions",
     "alternating_psm",
     "apply_boundary_layers",
     "apply_edge_kernel",
     "apply_perturbation",
+    "arrival_times",
     "attenuated_psm",
     "auto_rank_socs",
     "boundary_layer_from_rcwa",
+    "calibrate_resist",
+    "cd_uniformity",
     "chromatic_aberrations",
     "contact_holes",
+    "critical_dimension",
     "demo_bars",
     "edge_fields_signed",
+    "edge_placement_errors",
+    "edge_psd",
+    "exposure_latitude",
+    "exposure_summary",
+    "exposure_trials",
+    "feature_table",
     "film_component_multipliers",
     "film_depth_factors",
     "film_socs_kernels",
@@ -100,20 +130,29 @@ __all__ = [
     "film_stack_images",
     "fit_boundary_layer",
     "fit_edge_kernel",
+    "fit_psd_model",
     "focus_stack_aberrations",
     "fringe_index_to_mn",
     "from_array",
+    "gauge_cd",
+    "godunov_update",
+    "hotspots",
     "lines_and_spaces",
     "mask_spectrum",
     "matmul_compensated",
+    "meef",
+    "meef_table",
     "model_from_json",
     "model_to_json",
     "nearest_pow2",
+    "nils_table",
     "noll_index_to_mn",
     "open_frame_profile",
     "osa_index_to_mn",
+    "pattern_fidelity",
     "polarization_states",
     "principal_channel_rotation",
+    "process_window",
     "pupil_function",
     "randomized_socs",
     "randomized_socs_chromatic",
@@ -130,7 +169,11 @@ __all__ = [
     "source_points",
     "spectrum_direct",
     "spectrum_fft",
+    "stochastic_ensemble",
+    "stochastic_psd",
+    "stochastic_volume_ensemble",
     "substrate_reflectance",
+    "swing_curve",
     "tcc_eigensystem",
     "tcc_total_trace",
     "thin_mask_transmission",

@@ -1,10 +1,11 @@
-"""Command-line interface of the port: the ``simulate``, ``socs`` and
-``m3dcal`` subcommands.
+"""Command-line interface of the port: the ``simulate``, ``socs``,
+``m3dcal``, ``focus``, ``resist3d``, ``stochastic`` and ``calibrate``
+subcommands.
 
-Same flags as ``python -m lithographysimulator_tpu simulate`` / ``socs`` /
-``m3dcal`` for the masks, sources, solvers and imaging options this port
-has (vector, chromatic, thick mask and, on ``simulate``, the scanner
-perturbations), plus ``--device`` and, for ``simulate``, ``--socs-rank``:
+Same flags and JSON report keys as ``python -m lithographysimulator_tpu``'s
+subcommands of those names for the masks, sources, solvers and options this
+port has, plus ``--device`` (default ``cuda``) and, for ``simulate``,
+``--socs-rank``; ``resist3d --big-n`` (the tiled full chip) is refused:
 
     python -m lithographysimulator_tpu_torch simulate --device cuda \
         --pixel-number 512 --source quasar --sigma-in 0.4 --sigma-out 0.8 \
@@ -19,6 +20,10 @@ perturbations), plus ``--device`` and, for ``simulate``, ``--socs-rank``:
         --steps 150 --out m3d.json
     python -m lithographysimulator_tpu_torch simulate --device cuda \
         --pixel-number 1024 --m3d m3d.json
+    python -m lithographysimulator_tpu_torch resist3d --device cuda \
+        --pixel-number 256 --mask lines --film --barc 37 --trials 8
+    python -m lithographysimulator_tpu_torch stochastic --device cuda \
+        --pixel-number 256 --mask lines --trials 64 --psd
 """
 
 from __future__ import annotations
@@ -255,6 +260,300 @@ def cmd_m3dcal(args) -> int:
     return 0
 
 
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _padded_source(source, chunk: int):
+    """(shifts, weights, max |shift|) of the live source points, padded
+    with zero weights to a multiple of ``chunk``."""
+    from .ops.abbe import _pad_points, source_points
+
+    pts = source_points(np.asarray(source))
+    shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
+    return shifts, weights, int(np.abs(shifts).max()) if shifts.size else 0
+
+
+def cmd_focus(args) -> int:
+    """Through-focus stack + focus-exposure matrix (CD vs defocus), on
+    --device."""
+    from .models.resist import ResistModel, critical_dimension
+    from .ops.focus import compiled_focus_stack, focus_stack_aberrations
+
+    config = _build_config(args)
+    mask = _build_mask(args, config)
+    source = _build_source(args, config)
+    shifts, weights, max_shift = _padded_source(source, args.chunk)
+    defocus = np.linspace(args.focus_min, args.focus_max, args.focus_steps)
+    base = np.asarray(_aberrations(args) or [0.0] * 5, np.float32)
+    stack_ab = focus_stack_aberrations(base, defocus.astype(np.float32))
+    run = compiled_focus_stack(config, chunk=args.chunk, normalize=True,
+                               max_abs_shift=max_shift,
+                               mask3d=_build_mask3d(args))
+    t0 = time.perf_counter()
+    stack = run(mask.geometry, stack_ab, shifts, weights)
+    _sync(args.device)
+    elapsed = time.perf_counter() - t0
+
+    model = ResistModel(threshold=args.threshold)
+    cds = [critical_dimension(model.develop_binary(im, config), config)
+           for im in stack]
+    print(json.dumps({
+        "defocus_nm": [float(d) for d in defocus],
+        "cd_nm": cds,
+        "wall_clock_s": round(elapsed, 3),
+    }))
+    if args.out:
+        np.save(args.out, stack.cpu().numpy())
+        print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_resist3d(args) -> int:
+    """3-D resist development on --device: through-film exposure -> latent
+    image -> eikonal front propagation (lateral etch, undercut) -> 3-D
+    profile and summary. The exposure is the separable model (focal stack
+    x analytic absorption and standing waves) or, with --film, the
+    rigorous image in the resist over the --substrate/--barc stack;
+    --trials adds the volumetric stochastic ensemble."""
+    import sys
+
+    from .models.resist import DepthResist, MackResist
+
+    config = _build_config(args)
+    if args.big_n and args.big_n > config.n:
+        raise SystemExit(
+            f"resist3d --big-n {args.big_n}: the full-chip path needs the "
+            "tiled imager (ops/tiled.py, tiled_film_stack), which this port "
+            "does not have yet; run at --pixel-number instead")
+    mask = _build_mask(args, config)
+    source = _build_source(args, config)
+    if args.film and args.reflectivity:
+        print("error: --reflectivity is the separable model's knob; with "
+              "--film the actual substrate/BARC stack sets the reflected "
+              "wave (use --substrate/--barc)", file=sys.stderr)
+        return 2
+    dr = DepthResist(
+        mack=MackResist(thickness_nm=args.thickness, develop_s=args.develop_s),
+        nz=args.nz,
+        absorbance_per_um=args.absorbance,
+        substrate_reflectivity=args.reflectivity,
+        peb_diffusion_nm=args.peb,
+        n_resist=args.n_resist,
+        wavelength_nm=config.wavelength,
+        surface_rate_factor=args.surface_rate_factor,
+        inhibition_depth_nm=args.inhibition_depth,
+        lateral_rate_factor=args.lateral_rate_factor,
+        lateral_surface_factor=args.lateral_surface_factor,
+    )
+    base = np.asarray(_aberrations(args) or [0.0] * 5, np.float32)
+    t0 = time.perf_counter()
+    if args.film:
+        from .ops.filmstack import MATERIALS_193, WaferStack
+        from .simulate import film_stack_images
+
+        under = (((float(args.barc), complex(*args.barc_n)),)
+                 if args.barc > 0 else ())
+        wafer = WaferStack.from_resist(
+            dr, under_layers=under, n_substrate=MATERIALS_193[args.substrate])
+        stack = film_stack_images(
+            mask, source, base, device=args.device, config=config,
+            wafer_stack=wafer, resist=dr, polarization=_polarization(args),
+            chunk=args.chunk, normalize=True, mask3d=_build_mask3d(args))
+        dr = dr.rigorous()  # exposure stack already carries absorption
+    else:
+        from .ops.focus import compiled_focus_stack, focus_stack_aberrations
+
+        shifts, weights, max_shift = _padded_source(source, args.chunk)
+        # Entry 4 of --aberrations is the user's focus setting (nm); the
+        # film's per-slab defocus offsets ride on top of it
+        # (focus_stack_aberrations replaces entry 4).
+        best_focus = float(base[4]) if base.shape[0] > 4 else 0.0
+        film_defocus = dr.film_defocus_nm(best_focus_nm=best_focus)
+        stack_ab = focus_stack_aberrations(base, film_defocus.astype(np.float32))
+        run = compiled_focus_stack(config, chunk=args.chunk, normalize=True,
+                                   max_abs_shift=max_shift,
+                                   mask3d=_build_mask3d(args))
+        stack = run(mask.geometry, stack_ab, shifts, weights)
+    profile = dr.develop_profile_binary(
+        stack, args.dose, pixel_size_nm=config.pixel_size).cpu().numpy()
+    stochastic = None
+    if args.trials:
+        # volumetric stochastic resist on the (nz, n, n) exposure: per-slab
+        # counting statistics -> z-resolved LER/CD + defect rates
+        from .models.stochastic import (StochasticResist,
+                                        stochastic_volume_ensemble)
+
+        model = StochasticResist(dose_photons_per_nm2=args.dose_photons,
+                                 diffusion_nm=args.peb,
+                                 threshold=args.sto_threshold)
+        vol = stochastic_volume_ensemble(
+            stack, config, model, dz_nm=dr.mack.thickness_nm / dr.nz,
+            trials=args.trials, seed=args.seed)
+        stochastic = {
+            "trials": vol["trials"],
+            "ler_top_nm": round(vol["ler_top_nm"], 4),
+            "ler_bottom_nm": round(vol["ler_bottom_nm"], 4),
+            "slabs": [{k: (round(v, 5) if isinstance(v, float) else v)
+                       for k, v in sl.items()} for sl in vol["slabs"]],
+        }
+    elapsed = time.perf_counter() - t0
+
+    # Undercut voxels: removed, with intact resist somewhere strictly above
+    # them in the same column (min over the slabs above == 0).
+    above_min = np.concatenate(
+        [np.ones_like(profile[:1]),
+         np.minimum.accumulate(profile, axis=0)[:-1]])
+    undercut = int(np.logical_and(profile > 0.5, above_min < 0.5).sum())
+    report = {
+        "nz": dr.nz,
+        "thickness_nm": dr.mack.thickness_nm,
+        "exposure": "film" if args.film else "separable",
+        "cleared_fraction": float(profile.mean()),
+        "through_print_fraction": float(profile.min(axis=0).mean()),
+        "undercut_voxels": undercut,
+        "wall_clock_s": round(elapsed, 3),
+    }
+    if stochastic is not None:
+        report["stochastic"] = stochastic
+    print(json.dumps(report))
+    if args.out:
+        np.savez_compressed(args.out, profile=profile, depths_nm=dr.depths_nm)
+        print(f"wrote {args.out}")
+    if args.plot:
+        plt = _pyplot()
+        row = config.n // 2
+        fig, axes = plt.subplots(2, 1, figsize=(8, 5), layout="constrained")
+        axes[0].imshow(stack[dr.nz // 2].cpu().numpy(), cmap="inferno")
+        axes[0].set_title("aerial image (mid-film plane)")
+        axes[1].imshow(1.0 - profile[:, row, :], cmap="copper",
+                       aspect="auto", interpolation="nearest")
+        axes[1].set_title(f"resist x-z cross-section (row {row}; "
+                          "dark = cleared)")
+        axes[1].set_ylabel("depth slab")
+        fig.savefig(args.plot, dpi=130)
+        print(f"wrote {args.plot}")
+    return 0
+
+
+def _pyplot():
+    try:
+        import matplotlib
+    except ImportError:
+        raise SystemExit("--plot needs matplotlib, which is not "
+                         "installed") from None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def cmd_stochastic(args) -> int:
+    """Monte-Carlo stochastic printing on --device: aerial image ->
+    photon/acid counting trials -> LER/LWR/LCDU + bridge/break defect
+    rates + print-probability band (+ the edge PSD with --psd)."""
+    from .models.stochastic import StochasticResist, stochastic_ensemble
+    from .simulate import simulate
+
+    config = _build_config(args)
+    mask = _build_mask(args, config)
+    source = _build_source(args, config)
+    result = simulate(mask, source, _aberrations(args), device=args.device,
+                      solver=args.solver, normalize=True,
+                      polarization=_polarization(args),
+                      chromatic=_build_chromatic(args))
+    model = StochasticResist(
+        dose_photons_per_nm2=args.dose_photons,
+        quantum_efficiency=args.quantum_efficiency,
+        pag_per_nm2=args.pag, diffusion_nm=args.diffusion,
+        threshold=args.threshold, noise=args.noise)
+    t0 = time.perf_counter()
+    want_psd = args.psd or bool(args.psd_out)  # --psd-out implies --psd
+    out = stochastic_ensemble(result.image, config, model, trials=args.trials,
+                              seed=args.seed, psd=want_psd)
+    # the PSD accumulates from the same streamed trials as the summary
+    psd = out.pop("psd", None)
+    if psd is not None:
+        for k in ("ler_3s_nm", "acf_corr_length_nm", "corr_length_nm",
+                  "alpha", "psd0_nm3", "n_edges"):
+            if k in psd:
+                out[f"psd_{k}"] = psd[k]
+        if args.psd_out:
+            np.savez(args.psd_out, freq_per_nm=psd["freq_per_nm"],
+                     psd_nm3=psd["psd_nm3"])
+    elapsed = time.perf_counter() - t0
+    band = out.pop("print_probability")
+    out["wall_s"] = round(elapsed, 3)
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in out.items()}))
+    if args.out:
+        np.save(args.out, band)
+        print(f"wrote {args.out}")
+    if args.plot:
+        plt = _pyplot()
+        n_panels = 3 if psd is not None and psd["n_edges"] else 2
+        fig, axes = plt.subplots(1, n_panels, figsize=(4.5 * n_panels, 4.2))
+        axes[0].imshow(result.image.cpu().numpy(), cmap="inferno")
+        axes[0].set_title("aerial image")
+        im = axes[1].imshow(band, cmap="RdBu_r", vmin=0, vmax=1)
+        axes[1].set_title(
+            f"print probability ({args.trials} trials)\n"
+            f"LER {out['ler_nm']:.2f} nm  LWR {out['lwr_nm']:.2f} nm")
+        fig.colorbar(im, ax=axes[1], fraction=0.046)
+        for ax in axes[:2]:
+            ax.set_xticks([]), ax.set_yticks([])
+        if n_panels == 3:
+            f_ax, p_ax = psd["freq_per_nm"], psd["psd_nm3"]
+            axes[2].loglog(f_ax, p_ax, lw=1.2, label="measured")
+            model_psd = psd["psd0_nm3"] / (
+                1.0 + (2 * np.pi * f_ax * psd["corr_length_nm"]) ** 2
+            ) ** (psd["alpha"] + 0.5)
+            axes[2].loglog(f_ax, model_psd, "--", lw=1.0,
+                           label=(f"Palasantzas fit\n"
+                                  f"$\\xi$={psd['corr_length_nm']:.1f} nm  "
+                                  f"$\\alpha$={psd['alpha']:.2f}"))
+            axes[2].set_xlabel("frequency (1/nm)")
+            axes[2].set_ylabel("PSD (nm$^3$)")
+            axes[2].set_title(
+                f"LER PSD ({psd['n_edges']} edges)\n"
+                f"ACF corr. length {psd['acf_corr_length_nm']:.1f} nm")
+            axes[2].legend(fontsize=8)
+        fig.tight_layout()
+        fig.savefig(args.plot, dpi=130)
+        print(f"wrote {args.plot}")
+    return 0
+
+
+def cmd_calibrate(args) -> int:
+    """Resist model calibration: fit model parameters to measured gauge
+    CDs (aerial images from .npy files + CD-SEM numbers). The fit is numpy
+    on the host, as in the JAX package; --device is not used by it."""
+    from .models.calibrate import calibrate_resist
+    from .models.resist import MackResist, ResistModel
+
+    config = _build_config(args)
+    images = [np.load(p) for p in args.images]
+    if len(args.cds) != len(images):
+        raise SystemExit(f"{len(images)} --images vs {len(args.cds)} --cds")
+    model = MackResist() if args.model == "mack" else ResistModel(
+        threshold=args.threshold, diffusion_nm=args.diffusion)
+    t0 = time.perf_counter()
+    out = calibrate_resist(images, args.cds, config, model=model,
+                           fit=tuple(args.fit), iters=args.iters)
+    print(json.dumps({
+        "params": out["params"],
+        "rms_nm": round(out["rms_nm"], 4),
+        "cd_nm": [round(float(c), 3) for c in out["cd_nm"]],
+        "residual_nm": [round(float(r), 3) for r in out["residual_nm"]],
+        "evals": out["evals"],
+        "wall_clock_s": round(time.perf_counter() - t0, 3),
+    }))
+    return 0
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on ('cuda', 'cuda:1', 'cpu')")
@@ -275,7 +574,9 @@ def _add_optics(p) -> None:
                         "polarized/chromatic kernel builds")
 
 
-def _add_common(p) -> None:
+def _add_scene(p) -> None:
+    """The device, the optics, the mask, the source, the aberrations and
+    the thick-mask model."""
     _add_device(p)
     _add_optics(p)
     p.add_argument("--mask", default="demo", choices=["demo", "lines", "contacts"])
@@ -294,18 +595,6 @@ def _add_common(p) -> None:
                         "(OSA entry 4 / Noll term 4 is defocus in nm)")
     p.add_argument("--zernike-indexing", default="osa",
                    choices=["osa", "noll", "fringe"])
-    p.add_argument("--polarization", default="scalar",
-                   choices=["scalar", "x", "y", "unpolarized"],
-                   help="vector (Jones-pupil) imaging for hyper-NA; "
-                        "'scalar' = the reference's scalar path")
-    p.add_argument("--bandwidth-pm", type=float, default=0.0,
-                   help="E95 laser bandwidth in pm (0 = monochromatic)")
-    p.add_argument("--chromatic-focus", type=float, default=-250.0,
-                   help="longitudinal chromatic aberration, nm defocus "
-                        "per pm of wavelength")
-    p.add_argument("--chromatic-samples", type=int, default=7)
-    p.add_argument("--chromatic-shape", default="gaussian",
-                   choices=["gaussian", "lorentzian", "tophat"])
     p.add_argument("--mask3d-width", type=float, default=0.0,
                    help="thick-mask boundary-layer strip width in nm "
                         "(0 = thin/Kirchhoff mask)")
@@ -318,6 +607,30 @@ def _add_common(p) -> None:
                    help="calibrated M3D model JSON from 'm3dcal --out' "
                         "(boundary layer incl. asymmetry, or multi-tap edge "
                         "kernel); overrides the scalar --mask3d-* flags")
+
+
+def _add_polarization(p, help_text: str) -> None:
+    p.add_argument("--polarization", default="scalar",
+                   choices=["scalar", "x", "y", "unpolarized"], help=help_text)
+
+
+def _add_chromatic(p) -> None:
+    p.add_argument("--bandwidth-pm", type=float, default=0.0,
+                   help="E95 laser bandwidth in pm (0 = monochromatic)")
+    p.add_argument("--chromatic-focus", type=float, default=-250.0,
+                   help="longitudinal chromatic aberration, nm defocus "
+                        "per pm of wavelength")
+    p.add_argument("--chromatic-samples", type=int, default=7)
+    p.add_argument("--chromatic-shape", default="gaussian",
+                   choices=["gaussian", "lorentzian", "tophat"])
+
+
+def _add_common(p) -> None:
+    """The scene, the polarization and the laser bandwidth."""
+    _add_scene(p)
+    _add_polarization(p, "vector (Jones-pupil) imaging for hyper-NA; "
+                         "'scalar' = the reference's scalar path")
+    _add_chromatic(p)
 
 
 def _add_m3dcal(sub) -> None:
@@ -371,7 +684,136 @@ def _add_m3dcal(sub) -> None:
     p.set_defaults(func=cmd_m3dcal)
 
 
-def main(argv=None) -> int:
+def _add_focus(sub) -> None:
+    p = sub.add_parser("focus", help="through-focus stack + FEM CDs")
+    _add_scene(p)
+    p.add_argument("--focus-min", type=float, default=-100.0)
+    p.add_argument("--focus-max", type=float, default=100.0)
+    p.add_argument("--focus-steps", type=int, default=5)
+    p.add_argument("--threshold", type=float, default=0.4)
+    p.add_argument("--chunk", type=int, default=4)
+    p.add_argument("--out", default=None, help="output .npy stack path")
+    p.set_defaults(func=cmd_focus)
+
+
+def _add_resist3d(sub) -> None:
+    p = sub.add_parser("resist3d",
+                       help="3-D resist develop (eikonal lateral etch)")
+    _add_scene(p)
+    p.add_argument("--nz", type=int, default=8)
+    p.add_argument("--trials", type=int, default=0,
+                   help="volumetric stochastic trials on the (nz, n, n) "
+                        "exposure (0 = off): per-slab photon/acid counting "
+                        "-> z-resolved LER/CD + defect rates in the report's "
+                        "'stochastic' field")
+    p.add_argument("--dose-photons", type=float, default=20.0,
+                   help="absorbed photons/nm^2 at relative intensity 1 for "
+                        "--trials (split across the nz slabs)")
+    p.add_argument("--sto-threshold", type=float, default=0.3,
+                   help="develop threshold of the stochastic model (--trials)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--thickness", type=float, default=100.0,
+                   help="resist film thickness (nm)")
+    p.add_argument("--develop-s", type=float, default=30.0)
+    p.add_argument("--dose", type=float, default=1.0)
+    p.add_argument("--absorbance", type=float, default=0.5,
+                   help="lumped Dill absorbance (1/um)")
+    p.add_argument("--reflectivity", type=float, default=0.0,
+                   help="substrate intensity reflectance (standing waves)")
+    p.add_argument("--lateral-rate-factor", type=float, default=1.0,
+                   help="anisotropic develop: lateral etch rate as a "
+                        "fraction of the vertical rate (1 = isotropic)")
+    p.add_argument("--lateral-surface-factor", type=float, default=1.0,
+                   help="extra lateral-rate suppression at the resist top, "
+                        "relaxing over --inhibition-depth")
+    p.add_argument("--inhibition-depth", type=float, default=0.0,
+                   help="depth constant (nm) of the surface inhibition terms")
+    p.add_argument("--surface-rate-factor", type=float, default=1.0,
+                   help="isotropic surface inhibition: develop rate at the "
+                        "resist top as a fraction of bulk")
+    p.add_argument("--peb", type=float, default=0.0,
+                   help="post-exposure-bake diffusion length (nm)")
+    p.add_argument("--film", action="store_true",
+                   help="rigorous electromagnetic image IN the resist over "
+                        "the --substrate/--barc stack (replaces the "
+                        "separable absorption x standing-wave model and the "
+                        "--reflectivity knob)")
+    p.add_argument("--n-resist", type=float, default=1.71,
+                   help="resist refractive index (real part)")
+    p.add_argument("--substrate", default="si", choices=["si", "sio2", "air"],
+                   help="substrate material under the film stack "
+                        "(--film only)")
+    p.add_argument("--barc", type=float, default=0.0,
+                   help="bottom antireflective coating thickness in nm "
+                        "(0 = none; --film only)")
+    p.add_argument("--barc-n", type=float, nargs=2, default=(1.82, 0.39),
+                   metavar=("RE", "IM"), help="BARC complex refractive index")
+    _add_polarization(p, "illumination polarization for the --film imager "
+                         "(scalar = TE-Airy image in resist)")
+    p.add_argument("--chunk", type=int, default=4)
+    p.add_argument("--big-n", type=int, default=None,
+                   help="full-chip size in px: needs the tiled imager "
+                        "(ops/tiled.py), not in this port yet; refused")
+    p.add_argument("--rank", type=int, default=64,
+                   help="film-SOCS rank for the tiled --big-n path")
+    p.add_argument("--halo", type=int, default=None,
+                   help="tile guard band (px) for the --big-n path")
+    p.add_argument("--out", default=None, help="3-D profile .npz path")
+    p.add_argument("--plot", default=None,
+                   help="cross-section .png path (needs matplotlib)")
+    p.set_defaults(func=cmd_resist3d)
+
+
+def _add_stochastic(sub) -> None:
+    p = sub.add_parser("stochastic",
+                       help="Monte-Carlo stochastic printing (LER/defects)")
+    _add_common(p)
+    p.add_argument("--solver", default="gau23",
+                   choices=["gau23", "direct", "socs"])
+    p.add_argument("--trials", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dose-photons", type=float, default=20.0,
+                   help="absorbed photons per nm^2 at relative intensity 1 "
+                        "(~20 = 30 mJ/cm^2 EUV)")
+    p.add_argument("--quantum-efficiency", type=float, default=1.0)
+    p.add_argument("--pag", type=float, default=0.0,
+                   help="photo-acid generators per nm^2 (depletion "
+                        "saturation; 0 = linear)")
+    p.add_argument("--diffusion", type=float, default=5.0,
+                   help="acid diffusion length (nm, 1-sigma)")
+    p.add_argument("--threshold", type=float, default=0.3)
+    p.add_argument("--noise", default="poisson", choices=["poisson", "gaussian"])
+    p.add_argument("--out", default=None, help="print-probability map .npy path")
+    p.add_argument("--psd", action="store_true",
+                   help="add LER power-spectral-density analysis (averaged "
+                        "edge PSD, Palasantzas fit, ACF correlation length)")
+    p.add_argument("--psd-out", default=None,
+                   help=".npz path for the PSD spectrum (implies --psd)")
+    p.add_argument("--plot", default=None,
+                   help="figure .png path (needs matplotlib)")
+    p.set_defaults(func=cmd_stochastic)
+
+
+def _add_calibrate(sub) -> None:
+    p = sub.add_parser(
+        "calibrate", help="fit resist model parameters to measured gauge CDs")
+    _add_scene(p)
+    p.add_argument("--images", nargs="+", required=True,
+                   help="gauge aerial images (.npy), one per measurement")
+    p.add_argument("--cds", type=float, nargs="+", required=True,
+                   help="measured CDs (nm), one per gauge image")
+    p.add_argument("--model", choices=["lumped", "mack"], default="lumped")
+    p.add_argument("--fit", nargs="+", default=["threshold", "diffusion_nm"],
+                   help="model fields to fit (others stay frozen)")
+    p.add_argument("--threshold", type=float, default=0.3,
+                   help="initial threshold (lumped model)")
+    p.add_argument("--diffusion", type=float, default=0.0,
+                   help="initial diffusion length nm (lumped model)")
+    p.add_argument("--iters", type=int, default=150)
+    p.set_defaults(func=cmd_calibrate)
+
+
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="lithographysimulator_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("simulate", help="compute an aerial image")
@@ -403,5 +845,13 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="output .npz path")
     p.set_defaults(func=cmd_socs)
     _add_m3dcal(sub)
-    args = parser.parse_args(argv)
+    _add_focus(sub)
+    _add_resist3d(sub)
+    _add_stochastic(sub)
+    _add_calibrate(sub)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
     return args.func(args)

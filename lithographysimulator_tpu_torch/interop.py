@@ -3,8 +3,9 @@
 This system has no weights: an optics config, a mask, a source map and an
 aberration vector are its parameters (with, for vector, chromatic and
 perturbed imaging, a laser spectrum and an image perturbation; for thick
-masks an M3D model, and for in-film imaging a wafer stack), and a SOCS
-kernel set is the state a build leaves. Source maps and aberration vectors
+masks an M3D model, for in-film imaging a wafer stack, and for the resist
+a resist or stochastic model), and a SOCS kernel set is the state a build
+leaves. Source maps and aberration vectors
 cross as numpy arrays (``np.asarray(x)`` of either package's value), which
 every port entry point takes; the config, the mask, the spectrum, the
 perturbation, an M3D model, a wafer stack and a kernel set need the
@@ -21,6 +22,8 @@ import torch
 
 from .config import LaserSpectrum, OpticsConfig
 from .models.mask import Mask, from_array
+from .models.resist import DepthResist, MackResist, ResistModel
+from .models.stochastic import StochasticResist
 from .ops.filmstack import WaferStack
 from .ops.hopkins import SOCSKernels
 from .ops.mask3d import BoundaryLayer, EdgeKernelM3D
@@ -62,6 +65,28 @@ def wafer_stack_from_jax(stack) -> WaferStack:
     """Port :class:`..ops.filmstack.WaferStack` with the same fields as
     ``stack`` (the JAX package's, or any object with them)."""
     return _same_fields(WaferStack, stack)
+
+
+def resist_from_jax(model) -> ResistModel | MackResist | DepthResist:
+    """Port resist model with the same fields as ``model``: a
+    :class:`..models.resist.DepthResist` (its nested ``mack`` carried over)
+    when it has one, a :class:`..models.resist.MackResist` when it carries
+    Dill/Mack fields, else a :class:`..models.resist.ResistModel` (the JAX
+    package's classes, or any object with their fields)."""
+    if hasattr(model, "mack"):
+        fields = {f.name: getattr(model, f.name)
+                  for f in dataclasses.fields(DepthResist)}
+        fields["mack"] = _same_fields(MackResist, model.mack)
+        return DepthResist(**fields)
+    if hasattr(model, "dill_c"):
+        return _same_fields(MackResist, model)
+    return _same_fields(ResistModel, model)
+
+
+def stochastic_from_jax(model) -> StochasticResist:
+    """Port :class:`..models.stochastic.StochasticResist` with the same
+    fields as ``model`` (the JAX package's, or any object with them)."""
+    return _same_fields(StochasticResist, model)
 
 
 def mask_from_numpy(geometry, config, *, device) -> Mask:

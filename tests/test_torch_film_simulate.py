@@ -13,8 +13,6 @@ measures them, over the whole stack against its peak
 (test_filmstack.py::test_film_socs_matches_exact_stack: 1e-4 scalar,
 5e-4 unpolarized at rank 48)."""
 
-import types
-
 import numpy as np
 import pytest
 
@@ -22,10 +20,12 @@ torch = pytest.importorskip("torch")
 
 import lithographysimulator_tpu as jt
 import lithographysimulator_tpu_torch as pt
+from lithographysimulator_tpu.models import resist as jr
 from lithographysimulator_tpu.ops import filmstack as jfs
 from lithographysimulator_tpu.ops import mask3d as jm
 from lithographysimulator_tpu_torch.interop import (config_from_jax,
                                                     mask3d_from_jax,
+                                                    resist_from_jax,
                                                     wafer_stack_from_jax)
 
 from .conftest import normalized_rms
@@ -40,8 +40,9 @@ SRC = np.asarray(jt.LightSource(CFG, sigma_out=0.6).classical())
 WAFER = jfs.WaferStack(n_resist=1.71 + 0.0077j, thickness_nm=150.0,
                        under_layers=((37.0, jfs.MATERIALS_193["barc"]),))
 PWAFER = wafer_stack_from_jax(WAFER)
-# the resist is read only for its depths (a DepthResist's slab centers)
-RESIST = types.SimpleNamespace(depths_nm=np.linspace(18.75, 131.25, 4))
+# the film calls read a resist for its slab centers: 18.75 ... 131.25 nm
+JRESIST = jr.DepthResist(mack=jr.MackResist(thickness_nm=150.0), nz=4)
+RESIST = resist_from_jax(JRESIST)
 BL = jm.BoundaryLayer(width_nm=8.0, beta_h=-0.2 + 0.1j, beta_v=-0.3)
 
 
@@ -69,7 +70,7 @@ def exact(masks):
     """JAX's exact stacks, scalar and unpolarized."""
     jmask, _ = masks
     return {pol: np.asarray(jt.film_stack_images(
-        jmask, SRC, config=CFG, wafer_stack=WAFER, resist=RESIST,
+        jmask, SRC, config=CFG, wafer_stack=WAFER, resist=JRESIST,
         polarization=pol)) for pol in SOCS_TOL}
 
 
@@ -108,7 +109,7 @@ def test_film_socs_matches_jax(masks, exact, pol):
     from the previous slab's basis in both packages)."""
     jmask, pmask = masks
     ref = jt.film_socs_kernels(SRC, config=CFG, wafer_stack=WAFER,
-                               resist=RESIST, polarization=pol, rank=RANK)
+                               resist=JRESIST, polarization=pol, rank=RANK)
     ours = pt.film_socs_kernels(SRC, device="cpu", config=PCFG,
                                 wafer_stack=PWAFER, resist=RESIST,
                                 polarization=pol, rank=RANK)

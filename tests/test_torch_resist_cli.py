@@ -1,0 +1,150 @@
+"""Port parity: the ``focus``, ``resist3d``, ``stochastic`` and
+``calibrate`` subcommands of the torch port's CLI (``--device cpu``, 32^2)
+against the JAX package's CLI, as tests/test_resist_artifacts_cli.py runs
+it.
+
+Each report has JAX's keys. Deterministic values (the focus CDs, the
+resist3d cleared, through-print and undercut counts, the deterministic CD
+of ``stochastic``, every calibrate value) equal JAX's: they are counts and
+pixel-quantized widths of binary profiles whose fields agree to the 1e-5
+class (tests/test_torch_resist.py), or the same numpy fit; the
+deterministic CD is subpixel and held to 1e-3 nm. The Monte-Carlo values
+differ by their random streams; their statistics are held to JAX's in
+tests/test_torch_stochastic.py, and here they are checked finite and in
+range.
+"""
+
+import io
+import json
+from contextlib import redirect_stdout
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from lithographysimulator_tpu import cli as jcli
+from lithographysimulator_tpu_torch import cli as pcli
+
+BASE = ["--pixel-number", "32", "--source", "annular", "--sigma-in", "0.2",
+        "--sigma-out", "0.6", "--mask", "lines"]
+FILM = ["resist3d", "--pixel-number", "32", "--source", "classical",
+        "--sigma-out", "0.5", "--mask", "lines", "--nz", "3", "--film",
+        "--substrate", "si", "--barc", "37"]
+SUBCOMMANDS = ("focus", "resist3d", "stochastic", "calibrate")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tier-1 run's workers share the cores: one torch thread each
+    keeps them from oversubscribing. No result depends on it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _report(module, argv) -> dict:
+    out = io.StringIO()
+    with redirect_stdout(out):
+        assert module.main(argv) == 0
+    return json.loads(out.getvalue().splitlines()[0])
+
+
+def _both(argv) -> tuple[dict, dict]:
+    return (_report(pcli, argv + ["--device", "cpu"]), _report(jcli, argv))
+
+
+def _without_clock(report: dict) -> dict:
+    return {k: v for k, v in report.items() if k not in ("wall_clock_s", "wall_s")}
+
+
+@pytest.mark.parametrize("command", SUBCOMMANDS)
+def test_device_defaults_to_cuda(command):
+    args = ["--images", "a.npy", "--cds", "1"] if command == "calibrate" else []
+    assert pcli._parser().parse_args([command, *args]).device == "cuda"
+
+
+def test_cli_focus_matches_jax():
+    ours, ref = _both(["focus", *BASE, "--focus-steps", "3"])
+    assert ours.keys() == ref.keys()
+    assert _without_clock(ours) == _without_clock(ref)
+
+
+def test_cli_resist3d_matches_jax(tmp_path):
+    argv = ["resist3d", *BASE, "--nz", "4", "--reflectivity", "0.2",
+            "--peb", "10", "--lateral-rate-factor", "0.7"]
+    ours = _report(pcli, argv + ["--device", "cpu", "--out",
+                                 str(tmp_path / "p.npz")])
+    ref = _report(jcli, argv + ["--out", str(tmp_path / "j.npz")])
+    assert ours.keys() == ref.keys()
+    assert _without_clock(ours) == _without_clock(ref)
+    assert 0.0 < ours["cleared_fraction"] < 1.0
+    np.testing.assert_array_equal(np.load(tmp_path / "p.npz")["profile"],
+                                  np.load(tmp_path / "j.npz")["profile"])
+
+
+def test_cli_resist3d_film_and_volumetric_stochastic_match_jax():
+    ours, ref = _both([*FILM, "--trials", "6", "--dose-photons", "40"])
+    assert ours.keys() == ref.keys()
+    sto, sto_ref = ours.pop("stochastic"), ref.pop("stochastic")
+    assert _without_clock(ours) == _without_clock(ref)
+    assert ours["exposure"] == "film"
+    assert sto.keys() == sto_ref.keys() and sto["trials"] == 6
+    assert len(sto["slabs"]) == 3
+    for slab, slab_ref in zip(sto["slabs"], sto_ref["slabs"]):
+        assert slab.keys() == slab_ref.keys()
+        assert slab["depth_nm"] == slab_ref["depth_nm"]
+        assert 0.0 <= slab["break_rate"] <= 1.0
+        assert 0.0 <= slab["bridge_rate"] <= 1.0
+
+
+def test_cli_resist3d_refusals(capsys):
+    assert pcli.main(["resist3d", "--device", "cpu", "--pixel-number", "32",
+                      "--mask", "lines", "--film", "--reflectivity", "0.2"]) == 2
+    capsys.readouterr()
+    for film in ([], ["--film"]):
+        with pytest.raises(SystemExit, match="ops/tiled.py"):
+            pcli.main(["resist3d", "--device", "cpu", "--pixel-number", "32",
+                       "--big-n", "64", *film])
+
+
+def test_cli_stochastic_psd_matches_jax(tmp_path):
+    argv = ["stochastic", *BASE, "--trials", "8", "--psd"]
+    ours = _report(pcli, argv + ["--device", "cpu", "--out",
+                                 str(tmp_path / "band.npy"),
+                                 "--psd-out", str(tmp_path / "psd.npz")])
+    ref = _report(jcli, argv)
+    assert ours.keys() == ref.keys()
+    assert ours["trials"] == ref["trials"] == 8
+    assert ours["deterministic_cd_nm"] == pytest.approx(
+        ref["deterministic_cd_nm"], abs=1e-3)
+    for key in ("ler_nm", "lwr_nm", "lcdu_nm", "psd_ler_3s_nm"):
+        assert np.isfinite(ours[key]) and ours[key] > 0
+    assert ours["psd_n_edges"] == ref["psd_n_edges"]
+    band = np.load(tmp_path / "band.npy")
+    assert band.shape == (32, 32) and 0.0 <= band.min() <= band.max() <= 1.0
+    assert np.load(tmp_path / "psd.npz")["psd_nm3"].size > 0
+
+
+def test_cli_calibrate_matches_jax(tmp_path):
+    from lithographysimulator_tpu.models.calibrate import gauge_cd
+    from lithographysimulator_tpu.models.resist import ResistModel
+    from lithographysimulator_tpu import OpticsConfig
+
+    cfg = OpticsConfig(pixel_number=32)
+    x = np.arange(32)
+    paths, cds = [], []
+    for i, (pitch, contrast) in enumerate(((8, 0.9), (16, 0.8))):
+        im = np.tile((0.5 + 0.5 * contrast * np.cos(2 * np.pi * x / pitch)) ** 2,
+                     (32, 1))
+        path = tmp_path / f"g{i}.npy"
+        np.save(path, im)
+        paths.append(str(path))
+        cds.append(f"{gauge_cd(ResistModel(threshold=0.42), im, cfg):.4f}")
+    argv = ["calibrate", "--pixel-number", "32", "--images", *paths,
+            "--cds", *cds, "--fit", "threshold"]
+    ours, ref = _both(argv)
+    assert ours.keys() == ref.keys()
+    assert _without_clock(ours) == _without_clock(ref)
+    assert ours["params"]["threshold"] == pytest.approx(0.42, abs=0.01)

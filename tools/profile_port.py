@@ -3,6 +3,7 @@
 on one CUDA card, from torch.profiler. Run from the repository root:
 
     PYTHONPATH=. python3 tools/profile_port.py [--chunks 512] [--rank 256] [--exact-only] [--vector]
+    PYTHONPATH=. python3 tools/profile_port.py --stochastic
 
 1. 1024^2 exact Abbe (lines/spaces 64/128 px, quasar sigma 0.4/0.8, as in
    chip_smoke.py phase 4): the first ``chunks`` chunks of 4 source points
@@ -17,6 +18,14 @@ on one CUDA card, from torch.profiler. Run from the repository root:
    (unpolarized) and randomized_socs_chromatic build (0.3 pm E95, 5
    samples), both as bench.py runs them (power_iters=1, the setup's
    channel rotation).
+
+With --stochastic it traces the resist paths instead of 1-3, on the
+rank-``rank`` SOCS image of the same mask and source (chip_smoke.py phases
+23 and 24): stochastic_ensemble (64 trials, psd=True, bench.py's model:
+dose 20 photons/nm^2, diffusion 8 nm, PAG 5/nm^2, threshold 0.3), whose
+busy share says whether the host's edge statistics or the device set its
+pace; exposure_trials (16 trials, trial_chunk 8, bench.py's device form);
+and the eikonal arrival_times at (8, 1024, 1024), 56 sweeps.
 
 Each run is traced after one untraced warm-up run and one untraced timed
 run. For each it prints the untraced and the traced wall clock (host clock
@@ -48,6 +57,7 @@ GROUPS = (
     ("row_requantize", ("row_requantize_kernel",)),
     ("cuBLAS GEMM", ("gemm", "Gemm", "xmma", "cutlass")),
     ("cuFFT", ("fft", "FFT")),
+    ("random (Poisson, normal)", ("poisson", "Poisson", "normal", "philox")),
 )
 
 
@@ -130,6 +140,8 @@ def main() -> int:
     ap.add_argument("--exact-only", action="store_true")
     ap.add_argument("--vector", action="store_true",
                     help="also trace the vector and chromatic paths")
+    ap.add_argument("--stochastic", action="store_true",
+                    help="trace the resist paths instead of the imaging ones")
     args = ap.parse_args()
 
     import torch
@@ -155,6 +167,10 @@ def main() -> int:
     shifts, weights = _pad_points(pts.shifts[:4 * args.chunks],
                                   pts.weights[:4 * args.chunks], 4)
     results = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    if args.stochastic:
+        resist_paths(torch, lt, args, cfg, spectrum, pupil, src, results)
+        print(json.dumps(results))
+        return 0
     for engine in ("int8", "matmul"):
         r = trace(torch, lambda: lt.abbe_image_points(
             spectrum, pupil, shifts, weights, cfg, device="cuda", engine=engine))
@@ -216,6 +232,33 @@ def vector_paths(torch, lt, args, cfg, spectrum, pupil, src, shifts, weights,
     show(f"1024^2 chromatic SOCS build, rank {args.rank}, power_iters=1, "
          f"{'no' if rot is None else rot.shape[2]} channel rotation", r)
     results["chromatic_socs_build"] = r
+
+
+def resist_paths(torch, lt, args, cfg, spectrum, pupil, src, results) -> None:
+    """The --stochastic traces: the ensemble, the trials and the eikonal."""
+    from lithographysimulator_tpu_torch.ops import eikonal
+
+    socs = lt.randomized_socs(pupil, src, cfg, rank=args.rank)
+    image = lt.socs_image(spectrum, socs, cfg)
+    image = image / image.max()
+    del socs
+    model = lt.StochasticResist(dose_photons_per_nm2=20.0, diffusion_nm=8.0,
+                                threshold=0.3, pag_per_nm2=5.0)
+    r = trace(torch, lambda: lt.stochastic_ensemble(image, cfg, model,
+                                                    trials=64, psd=True))
+    show("1024^2 stochastic_ensemble, 64 trials, psd=True", r)
+    results["stochastic_ensemble"] = r
+    r = trace(torch, lambda: lt.exposure_trials(image, cfg, model, trials=16,
+                                                trial_chunk=8).mean(dim=(1, 2)).cpu())
+    show("1024^2 exposure_trials, 16 trials, trial_chunk 8", r)
+    results["exposure_trials"] = r
+    dr = lt.DepthResist(nz=8)
+    slow = 1.0 / dr._rate(dr.latent(image))
+    spacing = (dr.mack.thickness_nm / dr.nz, cfg.pixel_size, cfg.pixel_size)
+    r = trace(torch, lambda: eikonal.arrival_times(slow, spacing,
+                                                   iterations=dr.nz + 48))
+    show(f"eikonal arrival_times at {tuple(slow.shape)}, {dr.nz + 48} sweeps", r)
+    results["eikonal"] = r
 
 
 if __name__ == "__main__":
