@@ -160,9 +160,46 @@ none where some were:
     exiting 0 with its JSON;
 26. the launches of phases 22-25, summed (each phase checked in 22-25).
 
-Run time on one H100 is about 5 minutes, most of it phase 4's int8 run,
+The tiled full chip (ops/tiled.py, metrology.py, models/mrc.py) at phase
+4's optics through 1024^2 tiles, the default 96 px halo (an 832 px core
+step), on a chip of phase 4's lines and spaces with 40 px contacts on
+every crossing of the tile seams; each phase prints its wall time, memory
+peak and launches, and fails if it launched no kernel:
+
+27. tiled_socs_image of the 8192^2 chip, 100 tiles, rank 256, int8: wall
+    clock, tiles/s, chip megapixels/s, the memory peak above the chip and
+    the kernels, and the image's launches (exactly 64 of each kernel a
+    tile); an interior tile's and the last corner tile's stitched cores
+    equal the tile's window (cut from the chip by explicit indices) imaged
+    as one field, within 1e-4 of its maximum; tiled_socs_image_stream
+    through array_window_fn within 1e-6 of the array path, with its wall
+    clock; the scan variant within 1e-5; the tiled int8 image within 1e-5
+    (nrms) of the tiled f32 matmul engine's;
+28. one tile's core 50 nm from focus, imaged with rank-128 kernels built
+    warm (from the focal plane's basis, power_iters 0) and cold, each
+    against the exact image: the warm error below max(2 x cold, 1e-5);
+    then tiled_fem over the 8192^2 chip, 5 planes over -100..100 nm, the
+    fem CLI's 5 doses, rank 128, warm starts: the CD matrix, DOF, exposure
+    latitude, CDU, NILS and EPE, the wall clock split into builds, imaging
+    and the develops with their CDs; the matrix finite and positive, the
+    window non-empty, the CD monotone in dose at best focus;
+29. at 4096^2 (25 tiles): tiled_film_stack (phase 24's stack, 8 slabs,
+    rank 96) with two tiles' cores against film_socs_stack of their
+    windows, 1e-4; resist3d --film --big-n 4096 through the CLI;
+    tiled_socs_image_field at rank 64: 3 x 3 flat samples within 1e-5 of
+    one, and under a field-edge defocus map (nearest) the center tile
+    within 1e-6 of the flat image, the corners not;
+    tiled_stochastic (16 trials) with its trials/s; orc_check with
+    MaskRules (the layout passes its own rules); tiled_meef_map;
+    defect_printability of a notch cut into one line (it must print);
+    dose_correction_map of phase 28's FEM and apply_dose_map on the card
+    equal to the float64 host product; the fem subcommand at --big-n 2048;
+30. every kernel launched in phases 27-29, window_product_limbs as often
+    as row_limb_gemm.
+
+Run time on one H100 is about 6 minutes, most of it phase 4's int8 run,
 phase 5's host oracle, phase 8's exact image, phases 13 and 15's exact
-images, and phase 20's fits and film slabs.
+images, phase 20's fits and film slabs, and phases 27-29's full chips.
 
 Kernel, plain and library times are device times: medians of 5 CUDA-event
 samples of one CUDA-graph replay of 10 back-to-back calls each, after a
@@ -180,7 +217,8 @@ The last stdout line is {"ok": true, "device": {...}}; the line before it
 is nvidia-smi's name and power limit, and the one before that lists each
 kernel with its launches, error, times and bound (launches on phases 3-5,
 socs_launches on phases 8-11, vector_launches on phases 13-16,
-m3d_launches on phases 18-20 and resist_launches on phases 22-25; ms,
+m3d_launches on phases 18-20, resist_launches on phases 22-25 and
+tiled_launches on phases 27-29; ms,
 library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
 and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 """
@@ -235,6 +273,16 @@ FIT_STEPS = 10
 M3DCAL_N = 256  # m3dcal's calibration grid in phase 20 (its CLI default is 64)
 M3DCAL_STEPS = 50
 FILM_RANK = 96
+DEVICE = "cuda"  # of phases 27-29
+TILE_N = 1024  # phases 27-29: the tile (one optical field)
+TILED_BIG_N = 8192  # phase 27-28's chip: 10 x 10 tiles of 1024^2
+SLICE_BIG_N = 4096  # phase 29's chip (the time limit)
+CLI_FEM_BIG_N = 2048
+FEM_RANK = 128
+FEM_DOSES = (0.8, 0.9, 1.0, 1.1, 1.2)  # the fem CLI's default doses
+TOL_TILE_CORE = 1e-4  # tests/test_tiled.py:81-103
+TOL_STREAM = 1e-6  # tests/test_tiled_stream.py:24-30
+TOL_SCAN = 1e-5  # tests/test_tiled.py:75-78
 
 
 def log(msg: str) -> None:
@@ -1591,6 +1639,348 @@ def phase_calibrate_cli(torch, lt, ik, launches: dict) -> None:
     _phase_end(torch, ik, 25, t0, launches, True)
 
 
+# ---------------------------------------------------------------------------
+# The tiled full chip: ops/tiled.py, metrology.py, models/mrc.py
+# ---------------------------------------------------------------------------
+
+def _chip_layout(lt, torch, big_n: int, n: int, step: int) -> "torch.Tensor":
+    """Phase 4's lines and spaces (n/16 px lines on an n/8 px pitch) over a
+    big_n^2 chip, with 40 px contacts on every crossing of the tile seams
+    (multiples of ``step``), so features straddle the cores' edges."""
+    big_cfg = lt.OpticsConfig(pixel_number=big_n)
+    chip = lt.lines_and_spaces(big_cfg, line_width_px=n // 16,
+                               pitch_px=n // 8, device=DEVICE).geometry.clone()
+    for r in range(step, big_n, step):
+        for c in range(step, big_n, step):
+            chip[r - 20:r + 20, c - 20:c + 20] = 1.0
+    return chip
+
+
+def _window(chip: np.ndarray, row0: int, col0: int, n: int) -> np.ndarray:
+    """The (n, n) window of ``chip`` at (row0, col0), zero outside it, by
+    explicit index arithmetic (not the tiled module's padding)."""
+    big_n = chip.shape[0]
+    out = np.zeros((n, n), np.float32)
+    r0, r1 = max(row0, 0), min(row0 + n, big_n)
+    c0, c1 = max(col0, 0), min(col0 + n, big_n)
+    out[r0 - row0:r1 - row0, c0 - col0:c1 - col0] = chip[r0:r1, c0:c1]
+    return out
+
+
+def _check_tile_cores(lt, torch, tiled, chip_np, image_fn, cfg, halo, step,
+                      tiles, tag: str) -> None:
+    """An interior tile and the last corner: the stitched core equals the
+    core of the tile's window imaged as one field, within 1e-4 of its
+    maximum (tests/test_tiled.py:81-103). ``tiled`` is (..., M, M) on the
+    host."""
+    n = cfg.n
+    for ti, tj in ((tiles // 2 - 1, tiles // 2), (tiles - 1, tiles - 1)):
+        field = _window(chip_np, ti * step - halo, tj * step - halo, n)
+        single = image_fn(torch.as_tensor(field, device=DEVICE)).cpu().numpy()
+        core = single[..., halo:halo + step, halo:halo + step]
+        got = tiled[..., ti * step:(ti + 1) * step, tj * step:(tj + 1) * step]
+        core = core[..., :got.shape[-2], :got.shape[-1]]  # chip-edge crop
+        check(f"{tag}: tile ({ti}, {tj}) core vs its window as one field "
+              "(max abs, rel)",
+              float(np.abs(got - core).max() / np.abs(core).max()),
+              TOL_TILE_CORE)
+
+
+def phase_tiled(torch, lt, ik, launches: dict) -> dict:
+    """Phase 27: the 8192^2 chip through 1024^2 tiles, rank 256, int8.
+    Returns the array path's launch counts."""
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    n = TILE_N
+    cfg, _, src = _headline_setup(lt, n)
+    halo = lt.default_halo(cfg)
+    tiles, step = tile_layout(TILED_BIG_N, n, halo)
+    t0 = _phase_start(torch, ik)
+    chip = _chip_layout(lt, torch, TILED_BIG_N, n, step)
+    chip_np = chip.cpu().numpy()
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device=DEVICE)
+    socs, t_build = _timed(torch, lambda: lt.randomized_socs(
+        pupil, src, cfg, rank=SOCS_RANK))
+    lt.tiled_socs_image(chip[:2 * step, :2 * step], socs, cfg)  # warm-up
+    base = dict(ik.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    img, t_array = _timed(torch, lambda: lt.tiled_socs_image(chip, socs, cfg))
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    per_image = {k: v - base[k] for k, v in ik.LAUNCHES.items()}
+    img_np = check_image(img, TILED_BIG_N)
+    mpx = TILED_BIG_N ** 2 / 1e6
+    log(f"[phase 27] {TILED_BIG_N}^2 chip through {n}^2 tiles: halo {halo}, "
+        f"step {step}, {tiles} x {tiles} = {tiles * tiles} tiles, rank "
+        f"{SOCS_RANK} (build {t_build:.3f} s), int8")
+    log(f"  tiled_socs_image: {t_array:.3f} s, {tiles * tiles / t_array:.2f} "
+        f"tiles/s, {mpx / t_array:.2f} chip megapixels/s, {1e3 * t_array / tiles ** 2:.2f} "
+        f"ms a tile; peak device memory above the chip and kernels {peak:.3f} GB; "
+        f"launches {per_image} (predicted {tiles * tiles * SOCS_RANK // 4} of each)")
+    if any(v != tiles * tiles * SOCS_RANK // 4 for v in per_image.values()):
+        raise AssertionError(f"one 8192^2 image should launch each kernel "
+                             f"{tiles * tiles * SOCS_RANK // 4} times: {per_image}")
+    _check_tile_cores(lt, torch, img_np, chip_np, lambda f: lt.socs_image(
+        lt.mask_spectrum(f, cfg), socs, cfg), cfg, halo, step, tiles,
+        "tiled_socs_image")
+    stream, t_stream = _timed(torch, lambda: lt.tiled_socs_image_stream(
+        lt.array_window_fn(chip_np, n), TILED_BIG_N, socs, cfg))
+    log(f"  tiled_socs_image_stream (array_window_fn, windows from the host): "
+        f"{t_stream:.3f} s, {tiles * tiles / t_stream:.2f} tiles/s")
+    check("stream vs array path (max abs, rel)",
+          float((stream - img).abs().max() / img.abs().max()), TOL_STREAM)
+    del stream
+    scan, t_scan = _timed(torch, lambda: lt.tiled_socs_image_scan(chip, socs, cfg))
+    log(f"  tiled_socs_image_scan: {t_scan:.3f} s")
+    check("scan variant vs loop (max abs, rel)",
+          float((scan - img).abs().max() / img.abs().max()), TOL_SCAN)
+    del scan
+    matmul, t_matmul = _timed(torch, lambda: lt.tiled_socs_image(
+        chip, socs, cfg, engine="matmul"))
+    log(f"  tiled matmul engine (cuBLAS f32, TF32 off): {t_matmul:.3f} s")
+    check("tiled int8 vs tiled f32 matmul engine (nrms)",
+          nrms(img_np, check_image(matmul, TILED_BIG_N)), TOL_SOCS_PAIR)
+    del matmul, img, socs
+    _phase_end(torch, ik, 27, t0, launches, True)
+    return per_image
+
+
+def phase_tiled_fem(torch, lt, ik, launches: dict) -> dict:
+    """Phase 28: tiled_fem over the 8192^2 chip, and the warm-start check.
+    Returns the FEM result for phase 29's dose map."""
+    from lithographysimulator_tpu_torch import metrology
+    from lithographysimulator_tpu_torch.ops.abbe import (abbe_image_points,
+                                                         source_points)
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    n = TILE_N
+    cfg, _, src = _headline_setup(lt, n)
+    halo = lt.default_halo(cfg)
+    tiles, step = tile_layout(TILED_BIG_N, n, halo)
+    # Warm against cold on one tile, both against the exact image (int8,
+    # within 1e-6 of f32), 50 nm from the basis's plane
+    chip = _chip_layout(lt, torch, TILED_BIG_N, n, step)
+    field = torch.as_tensor(_window(chip.cpu().numpy(), 4 * step - halo,
+                                    5 * step - halo, n), device=DEVICE)
+    spectrum = lt.mask_spectrum(field, cfg)
+    ab = np.array([0, 0, 0, 0, 50.0], np.float32)
+    pts = source_points(src)
+    exact = abbe_image_points(spectrum, lt.pupil_function(ab, cfg, device=DEVICE),
+                              *_padded(pts, 4), cfg, device=DEVICE)
+    exact = check_image(exact, n)[halo:halo + step, halo:halo + step]
+    build = metrology._builder(cfg, FEM_RANK, src, torch.device(DEVICE),
+                               polarization=None, apodize=True, chromatic=None)
+    _, basis = build(np.zeros(5, np.float32), return_basis=True)
+    warm, t_warm = _timed(torch, lambda: build(ab, power_iters=0,
+                                               init_basis=basis,
+                                               return_basis=True)[0])
+    cold, t_cold = _timed(torch, lambda: build(ab))
+    del basis
+    err = {k: nrms(check_image(lt.socs_image(spectrum, s, cfg), n)[
+        halo:halo + step, halo:halo + step], exact)
+        for k, s in (("warm", warm), ("cold", cold))}
+    del warm, cold
+    log(f"[phase 28] warm start at rank {FEM_RANK}, 50 nm from the basis's "
+        f"plane, one tile's core against the exact image: warm (power_iters 0) "
+        f"{err['warm']:.3e} in {t_warm:.3f} s, cold (power_iters 2) "
+        f"{err['cold']:.3e} in {t_cold:.3f} s")
+    check("warm-built tile error, against max(2 x cold error, 1e-5)",
+          err["warm"], max(2.0 * err["cold"], 1e-5))
+
+    t0 = _phase_start(torch, ik)
+    builds = []
+    make_builder = metrology._builder
+
+    def timed_builder(*args, **kw):
+        inner = make_builder(*args, **kw)
+
+        def timed(aberrations, **kw2):
+            out, t = _timed(torch, lambda: inner(aberrations, **kw2))
+            builds.append(t)
+            return out
+
+        return timed
+
+    marks = []  # (fraction, time): the stack is done at 0.8, synchronized
+    metrology._builder = timed_builder
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fem = lt.tiled_fem(
+            chip, cfg, src, defocus_nm=np.linspace(-100, 100, 5),
+            doses=FEM_DOSES, rank=FEM_RANK, resist=lt.ResistModel(threshold=0.4),
+            progress_cb=lambda f: marks.append((f, time.perf_counter())))
+        torch.cuda.synchronize()
+        t_fem = time.perf_counter() - start
+    finally:
+        metrology._builder = make_builder
+    t_stack = next(t for f, t in marks if f >= 0.8 - 1e-9) - start
+    t_builds = sum(builds)
+    log(f"  tiled_fem {TILED_BIG_N}^2, 5 focus planes -100..100 nm, doses "
+        f"{list(FEM_DOSES)}, rank {FEM_RANK}, warm starts: {t_fem:.3f} s = "
+        f"builds {t_builds:.3f} s ({', '.join(f'{b:.3f}' for b in builds)}) + "
+        f"imaging {t_stack - t_builds:.3f} s ({5 * tiles * tiles} tiles) + "
+        f"develop and CDs {t_fem - t_stack:.3f} s (25 cells)")
+    log(f"  CD matrix (nm, focus x dose): {np.round(fem['cd_nm'], 3).tolist()}")
+    log(f"  target CD {fem['target_cd_nm']:.3f} nm, DOF "
+        f"{fem['depth_of_focus_nm']:.3f} nm, exposure latitude "
+        f"{fem['exposure_latitude']:.4f}, in spec {fem['in_spec_fraction']:.3f}; "
+        f"CDU 3 sigma {fem['cdu']['cdu_3sigma_nm']:.4f} nm over "
+        f"{fem['cdu']['count']} features; NILS mean {fem['nils']['mean_nils']:.4f}; "
+        f"EPE max {fem['epe']['max_abs_epe_nm']:.3f} nm, missing "
+        f"{fem['epe']['missing']}")
+    cds = np.asarray(fem["cd_nm"])
+    if cds.shape != (5, 5) or not np.isfinite(cds).all() or cds.min() <= 0:
+        raise AssertionError(f"bad CD matrix {cds}")
+    if not fem["depth_of_focus_nm"] > 0 or not fem["exposure_latitude"] > 0:
+        raise AssertionError("empty process window at the nominal CD")
+    if not (np.diff(cds[2]) >= 0).all() and not (np.diff(cds[2]) <= 0).all():
+        raise AssertionError(f"CD not monotone in dose at best focus: {cds[2]}")
+    _phase_end(torch, ik, 28, t0, launches, True)
+    return fem
+
+
+def phase_tiled_rest(torch, lt, ik, launches: dict, fem: dict) -> None:
+    """Phase 29: the film stack, resist3d --big-n, the ensemble, ORC, MEEF,
+    defect printability, the dose map and the fem CLI, at 4096^2."""
+    import tempfile
+
+    from lithographysimulator_tpu_torch import cli
+    from lithographysimulator_tpu_torch.ops.filmstack import MATERIALS_193
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    n = TILE_N
+    cfg, _, src = _headline_setup(lt, n)
+    halo = lt.default_halo(cfg)
+    tiles, step = tile_layout(SLICE_BIG_N, n, halo)
+    t0 = _phase_start(torch, ik)
+    chip = _chip_layout(lt, torch, SLICE_BIG_N, n, step)
+    chip_np = chip.cpu().numpy()
+    dr = lt.DepthResist(mack=lt.MackResist(thickness_nm=150.0), nz=8,
+                        absorbance_per_um=0.5, n_resist=1.71)
+    wafer = lt.WaferStack.from_resist(
+        dr, under_layers=((37.0, MATERIALS_193["barc"]),))
+    kernels, t_build = _timed(torch, lambda: lt.film_socs_kernels(
+        src, device=DEVICE, config=cfg, wafer_stack=wafer, resist=dr,
+        rank=FILM_RANK))
+    total = float(src.sum(dtype=np.float64))
+    stack, t = _timed(torch, lambda: lt.tiled_film_stack(
+        chip, kernels, cfg, source_total=total))
+    log(f"[phase 29] {SLICE_BIG_N}^2 chip ({tiles * tiles} tiles): film kernels "
+        f"nz {dr.nz} rank {FILM_RANK} {t_build:.3f} s; tiled_film_stack "
+        f"{t:.3f} s ({tiles * tiles * dr.nz / t:.2f} tile-slabs/s), shape "
+        f"{tuple(stack.shape)}")
+    _check_tile_cores(lt, torch, stack.cpu().numpy(), chip_np,
+                      lambda f: lt.film_socs_stack(f, kernels, config=cfg,
+                                                   source_total=total),
+                      cfg, halo, step, tiles, "tiled_film_stack")
+    del kernels, stack
+    common = ["--device", DEVICE, "--pixel-number", str(n), "--mask", "lines"]
+    report, t = _timed(torch, lambda: _cli_report(cli, [
+        "resist3d", *common, "--big-n", str(SLICE_BIG_N), "--film", "--barc",
+        "37"]))
+    log(f"  CLI resist3d --film --big-n {SLICE_BIG_N} ({t:.3f} s): "
+        f"{json.dumps(report)}")
+    if not 0.0 < report["cleared_fraction"] < 1.0:
+        raise AssertionError("resist3d --big-n cleared nothing or everything")
+
+    model = lt.StochasticResist(dose_photons_per_nm2=20.0, diffusion_nm=8.0,
+                                threshold=0.3)
+    out, t = _timed(torch, lambda: lt.tiled_stochastic(
+        chip, cfg, src, model=model, trials=16, seed=0, rank=64))
+    log(f"  tiled_stochastic, 16 trials, rank 64: {t:.3f} s ({16 / t:.2f} "
+        f"trials/s with the image): LER {out['ler_nm']:.4f} nm, LWR "
+        f"{out['lwr_nm']:.4f} nm, LCDU {out['lcdu_nm']:.4f} nm, mean CD "
+        f"{out['mean_cd_nm']:.3f} nm, break {out['break_rate']:.3e}, bridge "
+        f"{out['bridge_rate']:.3e}")
+    p = out["print_probability"]
+    if (out["big_n"] != SLICE_BIG_N or not 0.0 <= p.min() <= p.max() <= 1.0
+            or not out["ler_nm"] > 0):
+        raise AssertionError("tiled_stochastic: bad ensemble")
+
+    flat = lambda fx, fy: np.zeros(5, np.float32)
+    one, t1 = _timed(torch, lambda: lt.tiled_socs_image_field(
+        chip, cfg, src, flat, field_points=1, rank=64))
+    three, t3 = _timed(torch, lambda: lt.tiled_socs_image_field(
+        chip, cfg, src, flat, field_points=3, rank=64))
+    log(f"  tiled_socs_image_field, rank 64, a flat field: 1 sample {t1:.3f} "
+        f"s, 3 x 3 samples (linear blend) {t3:.3f} s")
+    check("field path: 3 x 3 flat samples vs 1 (max abs, rel)",
+          float((three - one).abs().max() / one.abs().max()), TOL_SCAN)
+    slit = lambda fx, fy: np.array([0, 0, 0, 0, 120.0 * (fx * fx + fy * fy)],
+                                   np.float32)
+    varying = lt.tiled_socs_image_field(chip, cfg, src, slit, field_points=3,
+                                        rank=64, blend="nearest")
+    # the tile nearest the chip's center takes the center (unaberrated) sample
+    i0 = int(np.argmin(np.abs((np.arange(tiles) + 0.5) * step / SLICE_BIG_N - 0.5)))
+    mid = slice(i0 * step, (i0 + 1) * step)
+    check(f"field path, nearest: tile ({i0}, {i0}) (the center sample) vs a "
+          "flat field (max abs, rel)",
+          float((varying[mid, mid] - one[mid, mid]).abs().max()
+                / one[mid, mid].abs().max()), TOL_STREAM)
+    corner = float((varying[:step, :step] - one[:step, :step]).abs().max())
+    if not corner > 1e-3 * float(one[:step, :step].max()):
+        raise AssertionError("field path: the edge tiles ignore the field map")
+    del one, three, varying
+
+    rules = lt.MaskRules(min_width_nm=100.0, min_space_nm=100.0,
+                         min_area_nm2=1e5)
+    orc, t = _timed(torch, lambda: lt.orc_check(
+        chip, chip, cfg, src, mrc_rules=rules, resist=lt.ResistModel(
+            threshold=0.4)))
+    log(f"  orc_check with MaskRules: {t:.3f} s: pass {orc['pass_']}, "
+        f"fidelity {orc['fidelity']}, EPE {orc['epe']}, NILS {orc['nils']}, "
+        f"MRC {orc['mrc']}")
+    if not orc["mrc"]["clean"] or orc["epe"]["matched"] <= 0:
+        raise AssertionError("orc_check: the layout fails its own rules")
+
+    table, t = _timed(torch, lambda: lt.tiled_meef_map(
+        chip, cfg, src, resist=lt.ResistModel(threshold=0.4), rank=64))
+    log(f"  tiled_meef_map, rank 64: {t:.3f} s: {table['count']} features, "
+        f"mean MEEF {table['mean_meef']:.4f}, sigma {table['sigma_meef']:.4f}")
+    if not table["count"] > 0 or not 0.2 < table["mean_meef"] < 5.0:
+        raise AssertionError("tiled_meef_map: no sane MEEF")
+    bad = chip.clone()
+    mid = SLICE_BIG_N // 2  # a cut line of the defect tables (row_step 16)
+    starts = np.flatnonzero(np.diff(chip_np[mid]) > 0) + 1
+    col = int(starts[len(starts) // 2]) + 20
+    bad[mid - 4:mid + 4, col:col + 24] = 0.0  # a notch inside one 64 px line
+    defect, t = _timed(torch, lambda: lt.defect_printability(
+        chip, bad, cfg, src, resist=lt.ResistModel(threshold=0.4,
+                                                   diffusion_nm=10.0), rank=64))
+    log(f"  defect_printability (a 24 px notch at ({mid}, {col})): {t:.3f} s: "
+        f"prints {defect['prints']}, max |CD delta| "
+        f"{defect['max_abs_cd_delta_nm']:.3f} nm (spec "
+        f"{defect['cd_spec_nm']:.3f}), at {defect['per_focus'][0]['cd_delta_location_nm']}")
+    if not defect["prints"]:
+        raise AssertionError("defect_printability missed a 24 px notch")
+
+    dc = lt.dose_correction_map(fem)
+    image = lt.tiled_socs_image(chip, lt.randomized_socs(
+        lt.pupil_function(np.zeros(1, np.float32), cfg, device=DEVICE), src,
+        cfg, rank=64), cfg)
+    scaled = lt.apply_dose_map(image, dc["dose_map"])
+    dm = np.asarray(dc["dose_map"], np.float64)
+    up = np.kron(dm, np.ones((-(-SLICE_BIG_N // dm.shape[0]),) * 2))
+    ref = (image.cpu().numpy() * up[:SLICE_BIG_N, :SLICE_BIG_N]).astype(np.float32)
+    log(f"  dose_correction_map of phase 28's FEM: sensitivity "
+        f"{dc['sensitivity_nm_per_dose']:.3f} nm per dose, dose map "
+        f"{dm.min():.4f}..{dm.max():.4f}, predicted residual "
+        f"{dc['predicted_residual_nm']:.3f} nm")
+    if not np.array_equal(scaled.cpu().numpy(), ref):
+        raise AssertionError("apply_dose_map differs from the float64 host product")
+    log("  apply_dose_map on the card equals the float64 host product: ok")
+    del image, scaled
+    with tempfile.TemporaryDirectory() as tmp:
+        report, t = _timed(torch, lambda: _cli_report(cli, [
+            "fem", *common, "--big-n", str(CLI_FEM_BIG_N), "--cdu-map",
+            f"{tmp}/cdu.npy"]))
+    log(f"  CLI fem --big-n {CLI_FEM_BIG_N} ({t:.3f} s): {json.dumps(report)}")
+    if np.asarray(report["cd_nm"]).shape != (5, 5):
+        raise AssertionError("fem CLI: bad CD matrix")
+    _phase_end(torch, ik, 29, t0, launches, True)
+
+
 def _fits_launched(fit_launches) -> None:
     """Phase 21's check of the fits alone: each int8 fit launched every
     kernel, one window_product_limbs a row_limb_gemm (no matmul fallback)."""
@@ -1687,6 +2077,20 @@ def main() -> int:
         raise AssertionError("phases 22-25: window_product_limbs and "
                              "row_limb_gemm launched unequally")
 
+    tiled_launches = {}  # phases 27-29, each counted and checked apart
+    per_image = phase_tiled(torch, lt, ik, tiled_launches)
+    fem = phase_tiled_fem(torch, lt, ik, tiled_launches)
+    phase_tiled_rest(torch, lt, ik, tiled_launches, fem)
+    log("[phase 30]")
+    log(f"  launches in phases 27-29: {tiled_launches}; one {TILED_BIG_N}^2 "
+        f"rank-{SOCS_RANK} image: {per_image}")
+    missing = [k for k in KERNELS if tiled_launches.get(k, 0) <= 0]
+    if missing or (tiled_launches["window_product_limbs"]
+                   != tiled_launches["row_limb_gemm"]):
+        raise AssertionError(f"phases 27-29: kernels never launched {missing}, "
+                             f"or window_product_limbs != row_limb_gemm: "
+                             f"{tiled_launches}")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
          "launches": launches[k], **stats[k],
@@ -1694,7 +2098,8 @@ def main() -> int:
          **{f"socs_{key}": v for key, v in socs_stats[k].items()},
          "vector_launches": vector_launches[k],
          "m3d_launches": m3d_launches[k],
-         "resist_launches": resist_launches[k]}
+         "resist_launches": resist_launches[k],
+         "tiled_launches": tiled_launches[k]}
         for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

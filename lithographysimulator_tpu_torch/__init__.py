@@ -6,8 +6,10 @@ polychromatic, through focus, thin or thick mask (boundary-layer and
 edge-kernel M3D models, calibrated against the in-repo RCWA solver), in
 the resist film (the rigorous film stack), with scanner perturbations;
 then the resist (lumped, Mack, depth-resolved with the eikonal 3-D
-develop, stochastic Monte-Carlo ensembles, calibration, CD metrology) on
-a CUDA device through hand-written int8 limb kernels
+develop, stochastic Monte-Carlo ensembles, calibration, CD metrology),
+and the full chip (tiled imaging of masks larger than one field, the
+focus-exposure matrix, ORC, MEEF maps, defect dispositions, mask rule
+checks) on a CUDA device through hand-written int8 limb kernels
 (``csrc/intensity_int8.cu``, differentiable: the backward recomputes in
 float32) or on the CPU through their plain PyTorch versions. Every entry
 point takes an explicit ``device``.
@@ -25,8 +27,13 @@ torch.backends.cudnn.allow_tf32 = False
 from .config import (DEMO_CONFIG, LaserSpectrum, OpticsConfig,
                      WavelengthScaling, nearest_pow2)
 from .grid import Grid, unit_disk_mask
+from .metrology import (apply_dose_map, defect_printability,
+                        dose_correction_map, orc_check, tiled_fem,
+                        tiled_focus_images, tiled_meef, tiled_meef_map,
+                        tiled_stochastic)
 from .models.mask import (Mask, alternating_psm, attenuated_psm, contact_holes,
                           demo_bars, from_array, lines_and_spaces)
+from .models.mrc import MaskRules, mrc_check, mrc_clean
 from .models.calibrate import calibrate_resist, gauge_cd
 from .models.pupil import Pupil, pupil_function
 from .models.resist import (DepthResist, MackResist, ResistModel,
@@ -62,6 +69,9 @@ from .ops.mask3d import (BoundaryLayer, EdgeKernelM3D, apply_boundary_layers,
                          edge_fields_signed, fit_boundary_layer,
                          fit_edge_kernel, model_from_json, model_to_json)
 from .ops.perturb import ImagePerturbation, apply_perturbation
+from .ops.tiled import (array_window_fn, default_halo, tiled_film_stack,
+                        tiled_socs_image, tiled_socs_image_field,
+                        tiled_socs_image_scan, tiled_socs_image_stream)
 from .ops.rcwa import (MASK_STACKS, GratingLayer, MaskStack,
                        rcwa_effective_mask, rcwa_orders, resolve_stack,
                        thin_mask_transmission)
@@ -87,6 +97,7 @@ __all__ = [
     "MASK_STACKS",
     "MackResist",
     "Mask",
+    "MaskRules",
     "MaskStack",
     "OpticsConfig",
     "Pupil",
@@ -104,8 +115,10 @@ __all__ = [
     "aligned_edge_positions",
     "alternating_psm",
     "apply_boundary_layers",
+    "apply_dose_map",
     "apply_edge_kernel",
     "apply_perturbation",
+    "array_window_fn",
     "arrival_times",
     "attenuated_psm",
     "auto_rank_socs",
@@ -115,7 +128,10 @@ __all__ = [
     "chromatic_aberrations",
     "contact_holes",
     "critical_dimension",
+    "default_halo",
+    "defect_printability",
     "demo_bars",
+    "dose_correction_map",
     "edge_fields_signed",
     "edge_placement_errors",
     "edge_psd",
@@ -144,10 +160,13 @@ __all__ = [
     "meef_table",
     "model_from_json",
     "model_to_json",
+    "mrc_check",
+    "mrc_clean",
     "nearest_pow2",
     "nils_table",
     "noll_index_to_mn",
     "open_frame_profile",
+    "orc_check",
     "osa_index_to_mn",
     "pattern_fidelity",
     "polarization_states",
@@ -178,6 +197,16 @@ __all__ = [
     "tcc_total_trace",
     "thin_mask_transmission",
     "through_focus_images",
+    "tiled_fem",
+    "tiled_film_stack",
+    "tiled_focus_images",
+    "tiled_meef",
+    "tiled_meef_map",
+    "tiled_socs_image",
+    "tiled_socs_image_field",
+    "tiled_socs_image_scan",
+    "tiled_socs_image_stream",
+    "tiled_stochastic",
     "to_osa_coefficients",
     "underlayer_sweep",
     "unit_disk_mask",

@@ -1,11 +1,12 @@
 """Command-line interface of the port: the ``simulate``, ``socs``,
-``m3dcal``, ``focus``, ``resist3d``, ``stochastic`` and ``calibrate``
-subcommands.
+``m3dcal``, ``focus``, ``resist3d``, ``stochastic``, ``calibrate`` and
+``fem`` subcommands.
 
 Same flags and JSON report keys as ``python -m lithographysimulator_tpu``'s
 subcommands of those names for the masks, sources, solvers and options this
 port has, plus ``--device`` (default ``cuda``) and, for ``simulate``,
-``--socs-rank``; ``resist3d --big-n`` (the tiled full chip) is refused:
+``--socs-rank``. ``--mask-file`` takes ``.npy`` arrays, and ``fem
+--stream`` is refused (both need ``io/layout.py``, not ported yet):
 
     python -m lithographysimulator_tpu_torch simulate --device cuda \
         --pixel-number 512 --source quasar --sigma-in 0.4 --sigma-out 0.8 \
@@ -24,11 +25,16 @@ port has, plus ``--device`` (default ``cuda``) and, for ``simulate``,
         --pixel-number 256 --mask lines --film --barc 37 --trials 8
     python -m lithographysimulator_tpu_torch stochastic --device cuda \
         --pixel-number 256 --mask lines --trials 64 --psd
+    python -m lithographysimulator_tpu_torch fem --device cuda \
+        --pixel-number 1024 --big-n 8192 --mask lines --rank 128
+    python -m lithographysimulator_tpu_torch resist3d --device cuda \
+        --pixel-number 1024 --big-n 4096 --mask lines --film --barc 37
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -72,8 +78,9 @@ def _build_mask(args, config):
     device = args.device
     if args.mask_file:
         if not str(args.mask_file).lower().endswith(".npy"):
-            raise SystemExit("--mask-file takes a .npy array (GDSII import is "
-                             "ROADMAP.md Queue 1 item 6)")
+            raise SystemExit("--mask-file takes a .npy array: GDSII/OASIS "
+                             "import needs io/layout.py, which this port "
+                             "does not have yet")
         return mask_mod.from_array(np.load(args.mask_file), config,
                                    device=device)
     n = config.n
@@ -324,11 +331,6 @@ def cmd_resist3d(args) -> int:
     from .models.resist import DepthResist, MackResist
 
     config = _build_config(args)
-    if args.big_n and args.big_n > config.n:
-        raise SystemExit(
-            f"resist3d --big-n {args.big_n}: the full-chip path needs the "
-            "tiled imager (ops/tiled.py, tiled_film_stack), which this port "
-            "does not have yet; run at --pixel-number instead")
     mask = _build_mask(args, config)
     source = _build_source(args, config)
     if args.film and args.reflectivity:
@@ -359,10 +361,28 @@ def cmd_resist3d(args) -> int:
                  if args.barc > 0 else ())
         wafer = WaferStack.from_resist(
             dr, under_layers=under, n_substrate=MATERIALS_193[args.substrate])
-        stack = film_stack_images(
-            mask, source, base, device=args.device, config=config,
-            wafer_stack=wafer, resist=dr, polarization=_polarization(args),
-            chunk=args.chunk, normalize=True, mask3d=_build_mask3d(args))
+        if args.big_n and args.big_n > config.n:
+            # full chip: per-slab film-SOCS kernels once, then the tiles
+            # through the fixed-size optics
+            from .ops.tiled import tiled_film_stack
+            from .simulate import film_socs_kernels
+
+            big_cfg = dataclasses.replace(config, pixel_number=args.big_n)
+            kernels = film_socs_kernels(
+                source, base, device=args.device, config=config,
+                wafer_stack=wafer, resist=dr,
+                polarization=_polarization(args), rank=args.rank)
+            stack = tiled_film_stack(
+                _build_mask(args, big_cfg).geometry.abs(), kernels, config,
+                source_total=float(np.asarray(source).sum()),
+                halo=args.halo, chunk=args.chunk, mask3d=_build_mask3d(args))
+            del kernels
+        else:
+            stack = film_stack_images(
+                mask, source, base, device=args.device, config=config,
+                wafer_stack=wafer, resist=dr,
+                polarization=_polarization(args), chunk=args.chunk,
+                normalize=True, mask3d=_build_mask3d(args))
         dr = dr.rigorous()  # exposure stack already carries absorption
     else:
         from .ops.focus import compiled_focus_stack, focus_stack_aberrations
@@ -551,6 +571,92 @@ def cmd_calibrate(args) -> int:
         "evals": out["evals"],
         "wall_clock_s": round(time.perf_counter() - t0, 3),
     }))
+    return 0
+
+
+def cmd_fem(args) -> int:
+    """Full-chip focus-exposure matrix and process window on the tiled SOCS
+    path, on --device: the mask at --big-n (e.g. 8192) through
+    --pixel-number tiles, over a focus x dose grid; reports DoF and
+    exposure latitude."""
+    from .metrology import tiled_fem
+    from .models.resist import ResistModel
+
+    if args.stream:
+        raise SystemExit("fem --stream reads tile windows from a GDSII/OASIS "
+                         "layout, which needs io/layout.py; this port does "
+                         "not have it yet")
+    tile_config = _build_config(args)  # optics of each tile
+    big_n = args.big_n or tile_config.n
+    big_cfg = dataclasses.replace(tile_config, pixel_number=big_n)
+    mask_big = _build_mask(args, big_cfg).geometry.abs()
+    source = _build_source(args, tile_config)
+    defocus = np.linspace(args.focus_min, args.focus_max, args.focus_steps)
+    t0 = time.perf_counter()
+    result = tiled_fem(
+        mask_big, tile_config, source,
+        defocus_nm=defocus, doses=args.doses,
+        target_cd_nm=args.target_cd,
+        resist=ResistModel(threshold=args.threshold),
+        tolerance=args.cd_tolerance,
+        base_aberrations=_aberrations(args),
+        rank=args.rank, halo=args.halo,
+        tiles_per_dispatch=args.tiles_per_dispatch,
+        polarization=_polarization(args), chromatic=_build_chromatic(args),
+        warm_start=not args.no_warm_start,
+        hotspot_nils=args.hotspot_nils,
+        pv_bands=args.pv_bands is not None,
+        mask3d=_build_mask3d(args),
+    )
+    elapsed = time.perf_counter() - t0
+    report = {
+        "big_n": big_n,
+        "tile_n": tile_config.n,
+        "defocus_nm": [float(d) for d in result["defocus_nm"]],
+        "doses": [float(d) for d in result["doses"]],
+        "cd_nm": np.asarray(result["cd_nm"]).tolist(),
+        "target_cd_nm": result["target_cd_nm"],
+        "depth_of_focus_nm": result["depth_of_focus_nm"],
+        "exposure_latitude": result["exposure_latitude"],
+        "in_spec_fraction": result["in_spec_fraction"],
+        "wall_clock_s": round(elapsed, 3),
+    }
+    cdu = result["cdu"]
+    if cdu is not None:
+        report["cdu"] = {k: v for k, v in cdu.items() if k != "cd_map_nm"}
+    if result["epe"] is not None:
+        report["epe"] = {k: v for k, v in result["epe"].items()
+                         if not k.startswith("epe_")}
+    if result["nils"] is not None:
+        report["nils"] = result["nils"]
+    if result["hotspots"] is not None:
+        spots = dict(result["hotspots"])
+        spots["locations"] = spots["locations"][:10]  # top-10 in the JSON
+        report["hotspots"] = spots
+    pv = result["pv"]
+    if pv is not None:
+        report["pv"] = {k: v for k, v in pv.items()
+                        if k not in ("outer", "inner", "band")}
+    print(json.dumps(report))
+    if args.pv_bands and pv is not None:
+        np.savez(args.pv_bands, outer=pv["outer"], inner=pv["inner"],
+                 band=pv["band"])
+        print(f"wrote {args.pv_bands}")
+    if args.cdu_map and cdu is not None:
+        cd_map = np.asarray(cdu["cd_map_nm"])
+        if args.cdu_map.endswith(".npy"):
+            np.save(args.cdu_map, cd_map)
+        else:
+            plt = _pyplot()
+            fig, ax = plt.subplots(dpi=200)
+            im = ax.imshow(cd_map, cmap="viridis")
+            ax.set_title(
+                f"CD uniformity map (mean {cdu['mean_cd_nm']:.1f} nm, "
+                f"3$\\sigma$ {cdu['cdu_3sigma_nm']:.2f} nm)")
+            fig.colorbar(im, ax=ax, label="mean CD (nm)")
+            fig.savefig(args.cdu_map)
+            plt.close(fig)
+        print(f"wrote {args.cdu_map}")
     return 0
 
 
@@ -752,8 +858,9 @@ def _add_resist3d(sub) -> None:
                          "(scalar = TE-Airy image in resist)")
     p.add_argument("--chunk", type=int, default=4)
     p.add_argument("--big-n", type=int, default=None,
-                   help="full-chip size in px: needs the tiled imager "
-                        "(ops/tiled.py), not in this port yet; refused")
+                   help="full-chip size in px for --film: tiled film-SOCS "
+                        "imaging through --pixel-number tiles (unused "
+                        "without --film, as in the JAX package)")
     p.add_argument("--rank", type=int, default=64,
                    help="film-SOCS rank for the tiled --big-n path")
     p.add_argument("--halo", type=int, default=None,
@@ -813,6 +920,48 @@ def _add_calibrate(sub) -> None:
     p.set_defaults(func=cmd_calibrate)
 
 
+def _add_fem(sub) -> None:
+    p = sub.add_parser(
+        "fem", help="full-chip focus-exposure matrix (tiled SOCS path)")
+    _add_common(p)
+    p.add_argument("--big-n", type=int, default=None,
+                   help="full-chip mask size in px (default: one tile; "
+                        "--pixel-number sets the tile size)")
+    p.add_argument("--focus-min", type=float, default=-100.0)
+    p.add_argument("--focus-max", type=float, default=100.0)
+    p.add_argument("--focus-steps", type=int, default=5)
+    p.add_argument("--doses", type=float, nargs="+",
+                   default=[0.8, 0.9, 1.0, 1.1, 1.2])
+    p.add_argument("--target-cd", type=float, default=None,
+                   help="target CD in nm (default: self-calibrate to the "
+                        "center-of-window CD)")
+    p.add_argument("--cd-tolerance", type=float, default=0.10)
+    p.add_argument("--threshold", type=float, default=0.4)
+    p.add_argument("--rank", type=int, default=128)
+    p.add_argument("--halo", type=int, default=None,
+                   help="tile halo px (default: optics-derived)")
+    p.add_argument("--tiles-per-dispatch", type=int, default=8)
+    p.add_argument("--no-warm-start", action="store_true",
+                   help="build every plane's kernels cold (no warm start "
+                        "from the previous plane's basis)")
+    p.add_argument("--hotspot-nils", type=float, default=None,
+                   help="report feature locations with NILS below this "
+                        "printability floor (e.g. 1.5)")
+    p.add_argument("--pv-bands", default=None,
+                   help="accumulate process-variability bands over the "
+                        "focus x dose corners and write outer/inner/band "
+                        "contour maps to this .npz (per-edge band stats "
+                        "land in the JSON report)")
+    p.add_argument("--cdu-map", default=None,
+                   help="write the nominal-condition CD-uniformity map "
+                        "(.npy, or an image extension, which needs "
+                        "matplotlib)")
+    p.add_argument("--stream", action="store_true",
+                   help="stream tile windows from a GDSII/OASIS "
+                        "--mask-file: needs io/layout.py, refused")
+    p.set_defaults(func=cmd_fem)
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="lithographysimulator_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -849,6 +998,7 @@ def _parser() -> argparse.ArgumentParser:
     _add_resist3d(sub)
     _add_stochastic(sub)
     _add_calibrate(sub)
+    _add_fem(sub)
     return parser
 
 

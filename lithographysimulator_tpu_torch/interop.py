@@ -4,12 +4,12 @@ This system has no weights: an optics config, a mask, a source map and an
 aberration vector are its parameters (with, for vector, chromatic and
 perturbed imaging, a laser spectrum and an image perturbation; for thick
 masks an M3D model, for in-film imaging a wafer stack, and for the resist
-a resist or stochastic model), and a SOCS kernel set is the state a build
-leaves. Source maps and aberration vectors
+a resist or stochastic model, for mask rule checks a rule set), and a
+SOCS kernel set is the state a build leaves. Source maps and aberration vectors
 cross as numpy arrays (``np.asarray(x)`` of either package's value), which
 every port entry point takes; the config, the mask, the spectrum, the
-perturbation, an M3D model, a wafer stack and a kernel set need the
-helpers here. Nothing here imports jax.
+perturbation, an M3D model, a wafer stack, the models, the mask rules and
+a kernel set need the helpers here. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 
 from .config import LaserSpectrum, OpticsConfig
 from .models.mask import Mask, from_array
+from .models.mrc import MaskRules
 from .models.resist import DepthResist, MackResist, ResistModel
 from .models.stochastic import StochasticResist
 from .ops.filmstack import WaferStack
@@ -87,6 +88,12 @@ def stochastic_from_jax(model) -> StochasticResist:
     """Port :class:`..models.stochastic.StochasticResist` with the same
     fields as ``model`` (the JAX package's, or any object with them)."""
     return _same_fields(StochasticResist, model)
+
+
+def mask_rules_from_jax(rules) -> MaskRules:
+    """Port :class:`..models.mrc.MaskRules` with the same fields as
+    ``rules`` (the JAX package's, or any object with them)."""
+    return _same_fields(MaskRules, rules)
 
 
 def mask_from_numpy(geometry, config, *, device) -> Mask:

@@ -36,6 +36,24 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _as_field(x):
+    """A tensor as it is, anything else as a numpy array."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _cut_lines(field, axis: int, row_step: int):
+    """(float64 host array, indices) of the cut lines a table reads: every
+    ``row_step``-th row of a 2-D ``field`` (``axis=1``) or column
+    (``axis=0``, transposed). The lines are picked before the read-back,
+    so a chip on the device moves only them to the host."""
+    field = _as_field(field)
+    if field.ndim != 2:
+        raise ValueError(f"expected a 2-D profile, got shape {tuple(field.shape)}")
+    lines = field.T if axis == 0 else field
+    rows_kept = np.arange(0, lines.shape[0], row_step)
+    return np.asarray(_host(lines[::row_step]), np.float64), rows_kept
+
+
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: maximum then minimum, so a value on a bound shares its
     gradient as JAX's does."""
@@ -120,9 +138,8 @@ def critical_dimension(profile, config: OpticsConfig, *, row: int | None = None,
                        threshold: float = 0.5) -> float:
     """Width (nm) of the first contiguous above-threshold run along a row cut
     of a developed profile — the printed feature's critical dimension."""
-    arr = _host(profile)
-    n = arr.shape[-1]
-    cut = arr[n // 2 if row is None else row]
+    field = _as_field(profile)
+    cut = _host(field[field.shape[-1] // 2 if row is None else row])
     above = cut > threshold
     if not above.any():
         return 0.0
@@ -150,17 +167,8 @@ def feature_table(profile, config: OpticsConfig, *, axis: int = 1,
 
     Returns arrays over features: ``row`` (cut index), ``rise_px`` /
     ``fall_px`` (subpixel edge positions along the cut), ``width_nm``,
-    ``center_nm``."""
-    arr = np.asarray(_host(profile), np.float64)
-    if arr.ndim != 2:
-        raise ValueError(f"expected a 2-D profile, got shape {arr.shape}")
-    if axis == 0:
-        arr = arr.T
-    if row_step > 1:
-        rows_kept = np.arange(0, arr.shape[0], row_step)
-        arr = arr[rows_kept]
-    else:
-        rows_kept = np.arange(arr.shape[0])
+    ``center_nm``. A tensor's kept cut lines alone are read back."""
+    arr, rows_kept = _cut_lines(profile, axis, row_step)
     n_cols = arr.shape[1]
     above = arr > threshold
     padded = np.zeros((arr.shape[0], n_cols + 2), np.int8)
@@ -212,11 +220,10 @@ def cd_uniformity(profile, config: OpticsConfig, *, threshold: float = 0.5,
     feature's width along ``axis``, and a ``(map_blocks, map_blocks)`` map
     of the mean CD per chip region (NaN where none prints).
     ``min_width_nm`` drops sub-resolution slivers from the statistics."""
-    arr = _host(profile)
-    n = arr.shape[0]
+    n = _as_field(profile).shape[0]
     if row_step is None:
         row_step = max(1, n // 512)  # cap the table at ~512 cut lines
-    feats = feature_table(arr, config, axis=axis, threshold=threshold,
+    feats = feature_table(profile, config, axis=axis, threshold=threshold,
                           row_step=row_step)
     widths = feats["width_nm"]
     keep = widths >= min_width_nm
@@ -247,19 +254,17 @@ def nils_table(image, config: OpticsConfig, *, threshold: float = 0.3,
     from :func:`feature_table`, the intensity gradient along the cut
     (central differences) interpolated at each crossing. Returns per-edge
     ILS (1/nm), per-feature NILS (with that feature's own CD) and summary
-    statistics."""
-    arr = np.asarray(_host(image), np.float64)
-    if arr.ndim != 2:
-        raise ValueError(f"expected a 2-D image, got shape {arr.shape}")
-    if normalize:
-        arr = arr / max(arr.max(), 1e-30)
-    if axis == 0:
-        arr = arr.T
-    n = arr.shape[0]
+    statistics. Only the kept cut lines of a tensor are read back."""
+    field = _as_field(image)
+    if field.ndim != 2:
+        raise ValueError(f"expected a 2-D image, got shape {tuple(field.shape)}")
+    n = field.shape[1 - axis]  # cut lines
     if row_step is None:
         row_step = max(1, n // 512)
-    feats = feature_table(arr, config, axis=1, threshold=threshold,
-                          row_step=row_step)
+    arr, rows_kept = _cut_lines(field, axis, row_step)
+    if normalize:
+        arr = arr / max(float(field.max()), 1e-30)
+    feats = feature_table(arr, config, axis=1, threshold=threshold)
     empty = {"count": 0, "mean_nils": 0.0, "min_nils": 0.0,
              "mean_ils_per_nm": 0.0, "threshold": threshold, "axis": axis}
     if feats["row"].size == 0:
@@ -294,7 +299,7 @@ def nils_table(image, config: OpticsConfig, *, threshold: float = 0.3,
         "nils": nils,
         "ils_per_nm": ils,
         "width_nm": feats["width_nm"],
-        "row": feats["row"],
+        "row": rows_kept[feats["row"]],
         "center_nm": feats["center_nm"],
         "threshold": threshold,
         "axis": axis,
@@ -370,7 +375,7 @@ def aligned_edge_positions(profile, target_table: dict,
     pf = feature_table(profile, config, axis=axis, threshold=threshold,
                        row_step=row_step)
     px = config.pixel_size
-    n = _host(profile).shape[axis == 0]
+    n = _as_field(profile).shape[axis == 0]
     best, matched = _match_features(pf, target_table, px, n,
                                     max_match_nm=max_match_nm)
     n_t = len(target_table["row"])
@@ -396,7 +401,7 @@ def edge_placement_errors(profile, target_geometry, config: OpticsConfig, *,
     tf = feature_table(target_geometry, config, axis=axis,
                        threshold=threshold, row_step=row_step)
     px = config.pixel_size
-    n = _host(profile).shape[axis == 0]
+    n = _as_field(profile).shape[axis == 0]
     best, matched = _match_features(pf, tf, px, n,
                                     max_match_nm=max_match_nm)
     p_key, t_rows = pf["row"], tf["row"]

@@ -37,6 +37,7 @@ its backward recomputes through the float32 path (:mod:`.abbe`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 
@@ -187,6 +188,19 @@ def tcc_eigensystem(
                        total_rank=limit)
 
 
+@functools.lru_cache(maxsize=4)
+def _int8_chirp(n: int, fft_size: int, device: torch.device):
+    """The whole (n, n) chirp's float32 planes and their int8 row limbs
+    and scales on ``device``: the int8 apply's T0, a function of the
+    config alone. Cached, so a tiled chip (one apply a tile) forms,
+    uploads and quantizes it once instead of once a tile; the values are
+    the same either way."""
+    t_full = _zoom_dft_kernel(n, fft_size)
+    t_re = torch.as_tensor(t_full.real, dtype=torch.float32, device=device)
+    t_im = torch.as_tensor(t_full.imag, dtype=torch.float32, device=device)
+    return (t_re, t_im, *prepare_t0_limbs(t_re, t_im))
+
+
 def socs_image(
     spectrum,
     socs: SOCSKernels,
@@ -231,10 +245,7 @@ def socs_image(
         # 2048^2 (its abbe.py:279-321); here one K-looped row_limb_gemm
         # serves every width, so both sizes run the int8 row kernel
         # (ROADMAP.md Queue 3, R3).
-        t_full = _zoom_dft_kernel(n, fft_size)
-        t_re = torch.as_tensor(t_full.real, dtype=torch.float32, device=device)
-        t_im = torch.as_tensor(t_full.imag, dtype=torch.float32, device=device)
-        t_limbs, t_scales = prepare_t0_limbs(t_re, t_im)
+        t_re, t_im, t_limbs, t_scales = _int8_chirp(n, fft_size, device)
         # each chunk's window is the whole kernel and spectrum: zero starts
         starts = torch.as_tensor(
             check_window_starts(np.zeros((chunk, 4), np.int32), n,

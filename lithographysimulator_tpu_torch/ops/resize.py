@@ -53,8 +53,16 @@ def bilinear_resize(img: torch.Tensor, scale: float,
     out_r, out_c = output_size(n_rows, scale), output_size(n_cols, scale)
     if out_r == n_rows and out_c == n_cols:
         return img.to(dtype)
-    w_r = torch.as_tensor(interp_matrix(n_rows, scale, out_r), dtype=dtype,
-                          device=img.device)
-    w_c = torch.as_tensor(interp_matrix(n_cols, scale, out_c), dtype=dtype,
-                          device=img.device)
+    w_r = _interp_matrix_on(n_rows, float(scale), out_r, dtype, img.device)
+    w_c = _interp_matrix_on(n_cols, float(scale), out_c, dtype, img.device)
     return w_r @ img.to(dtype) @ w_c.T
+
+
+@functools.lru_cache(maxsize=8)
+def _interp_matrix_on(n: int, scale: float, out_size: int, dtype,
+                      device: torch.device) -> torch.Tensor:
+    """:func:`interp_matrix` as a ``dtype`` tensor on ``device``, uploaded
+    once: a tiled chip resizes every tile's mask and image with the same
+    two matrices."""
+    return torch.as_tensor(interp_matrix(n, scale, out_size), dtype=dtype,
+                           device=device)

@@ -259,6 +259,9 @@ def test_import_leaves_jax_out():
             "lithographysimulator_tpu_torch.ops.filmstack, "
             "lithographysimulator_tpu_torch.ops.compensated, "
             "lithographysimulator_tpu_torch.simulate, "
+            "lithographysimulator_tpu_torch.ops.tiled, "
+            "lithographysimulator_tpu_torch.metrology, "
+            "lithographysimulator_tpu_torch.models.mrc, "
             "lithographysimulator_tpu_torch.utils.artifacts, "
             "lithographysimulator_tpu_torch.ops.kernels.build; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -318,3 +318,35 @@ def test_fit_boundary_layer_runs_on_the_kernels():
     assert hist8[-1] < hist8[0]
     np.testing.assert_allclose(hist8, hist32, rtol=1e-4)
     assert abs(bl8.beta_v - bl32.beta_v) < 1e-4
+
+
+@pytest.mark.cuda
+def test_tiled_chip_runs_on_the_kernels():
+    """A 512^2 chip through 128^2 tiles on the card: every tile's apply
+    launches the int8 kernels, one window_product_limbs a row_limb_gemm;
+    the image equals the f32 matmul engine's within the SOCS pair bound
+    (test_hopkins.py:164-172) and the streamed chip the array path's."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    cfg = lt.OpticsConfig(pixel_number=128)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    socs = lt.randomized_socs(lt.pupil_function(np.zeros(5), cfg, device=dev),
+                              src, cfg, rank=32)
+    x = np.arange(512)
+    chip = np.broadcast_to(((x // 8) % 16 == 0).astype(np.float32),
+                           (512, 512)).copy()
+    chip[100:108, 90:140] = 1.0  # across a seam
+    ik.reset_launch_counts()
+    img = lt.tiled_socs_image(chip, socs, cfg, halo=24)
+    tiles = (-(-512 // (128 - 48))) ** 2
+    assert img.device.type == "cuda" and img.shape == (512, 512)
+    assert ik.LAUNCHES["row_limb_gemm"] == tiles * 8  # rank 32: 8 chunks
+    assert ik.LAUNCHES["window_product_limbs"] == ik.LAUNCHES["row_limb_gemm"]
+    assert min(ik.LAUNCHES.values()) > 0
+    matmul = lt.tiled_socs_image(chip, socs, cfg, halo=24, engine="matmul")
+    assert _nrms(img.cpu(), matmul.cpu()) < 1e-5
+    stream = lt.tiled_socs_image_stream(lt.array_window_fn(chip, 128), 512,
+                                        socs, cfg, halo=24)
+    assert float((stream - img).abs().max()) <= 1e-6 * float(img.max())

@@ -100,13 +100,37 @@ def test_cli_resist3d_film_and_volumetric_stochastic_match_jax():
 
 
 def test_cli_resist3d_refusals(capsys):
+    """What resist3d still refuses: the separable model's --reflectivity
+    with --film (as the JAX CLI), and a layout --mask-file, which needs
+    io/layout.py. --big-n is no longer refused: with --film it tiles the
+    chip (next test), without it the flag is unused, as in the JAX CLI."""
     assert pcli.main(["resist3d", "--device", "cpu", "--pixel-number", "32",
                       "--mask", "lines", "--film", "--reflectivity", "0.2"]) == 2
-    capsys.readouterr()
+    assert "--reflectivity" in capsys.readouterr().err
     for film in ([], ["--film"]):
-        with pytest.raises(SystemExit, match="ops/tiled.py"):
+        with pytest.raises(SystemExit, match="io/layout.py"):
             pcli.main(["resist3d", "--device", "cpu", "--pixel-number", "32",
-                       "--big-n", "64", *film])
+                       "--big-n", "64", "--mask-file", "chip.gds", *film])
+
+
+def test_cli_resist3d_film_big_n_matches_jax(tmp_path):
+    """resist3d --film --big-n: the 128^2 chip through 64^2 tiles
+    (tiled_film_stack on per-slab kernels), then the 3-D develop. At 37
+    live source points and rank 24 both packages' film builds are exact,
+    so the report equals JAX's (D1's float32 class did not move a voxel
+    here) and so does the profile."""
+    argv = ["resist3d", "--pixel-number", "64", "--big-n", "128", "--source",
+            "classical", "--sigma-out", "0.2", "--mask", "lines", "--nz", "3",
+            "--film", "--barc", "37", "--rank", "24", "--halo", "16"]
+    ours = _report(pcli, argv + ["--device", "cpu", "--out",
+                                 str(tmp_path / "p.npz")])
+    ref = _report(jcli, argv + ["--out", str(tmp_path / "j.npz")])
+    assert ours.keys() == ref.keys()
+    assert _without_clock(ours) == _without_clock(ref)
+    assert ours["exposure"] == "film" and 0.0 < ours["cleared_fraction"] < 1.0
+    profile = np.load(tmp_path / "p.npz")["profile"]
+    assert profile.shape == (3, 128, 128)
+    np.testing.assert_array_equal(profile, np.load(tmp_path / "j.npz")["profile"])
 
 
 def test_cli_stochastic_psd_matches_jax(tmp_path):

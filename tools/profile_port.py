@@ -4,6 +4,7 @@ on one CUDA card, from torch.profiler. Run from the repository root:
 
     PYTHONPATH=. python3 tools/profile_port.py [--chunks 512] [--rank 256] [--exact-only] [--vector]
     PYTHONPATH=. python3 tools/profile_port.py --stochastic
+    PYTHONPATH=. python3 tools/profile_port.py --tiled
 
 1. 1024^2 exact Abbe (lines/spaces 64/128 px, quasar sigma 0.4/0.8, as in
    chip_smoke.py phase 4): the first ``chunks`` chunks of 4 source points
@@ -26,6 +27,17 @@ dose 20 photons/nm^2, diffusion 8 nm, PAG 5/nm^2, threshold 0.3), whose
 busy share says whether the host's edge statistics or the device set its
 pace; exposure_trials (16 trials, trial_chunk 8, bench.py's device form);
 and the eikonal arrival_times at (8, 1024, 1024), 56 sweeps.
+
+With --tiled it traces one 8192^2 tiled_socs_image instead (chip_smoke.py
+phase 27's chip: the same lines and spaces over the whole chip, with 40 px
+contacts on the tile seams; 1024^2 tiles, the default 96 px halo, 100
+tiles, rank-``rank`` kernels, int8), with the device time split into the
+int8 kernels, the spectrum (cuFFT and the resize GEMMs of cuBLAS) and the
+rest (crop, stitch, pad and elementwise), and the host gap per tile (wall
+minus device time, over the tiles). It also times a rank-``rank`` 1024^2
+apply in turns with its per-call set-up (the chirp's planes and limbs and
+the resize matrices) formed afresh, as before they were cached, and
+cached.
 
 Each run is traced after one untraced warm-up run and one untraced timed
 run. For each it prints the untraced and the traced wall clock (host clock
@@ -142,6 +154,9 @@ def main() -> int:
                     help="also trace the vector and chromatic paths")
     ap.add_argument("--stochastic", action="store_true",
                     help="trace the resist paths instead of the imaging ones")
+    ap.add_argument("--tiled", action="store_true",
+                    help="trace an 8192^2 tiled image instead of the imaging "
+                         "paths")
     args = ap.parse_args()
 
     import torch
@@ -169,6 +184,10 @@ def main() -> int:
     results = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     if args.stochastic:
         resist_paths(torch, lt, args, cfg, spectrum, pupil, src, results)
+        print(json.dumps(results))
+        return 0
+    if args.tiled:
+        tiled_path(torch, lt, args, cfg, spectrum, pupil, src, results)
         print(json.dumps(results))
         return 0
     for engine in ("int8", "matmul"):
@@ -259,6 +278,71 @@ def resist_paths(torch, lt, args, cfg, spectrum, pupil, src, results) -> None:
                                                    iterations=dr.nz + 48))
     show(f"eikonal arrival_times at {tuple(slow.shape)}, {dr.nz + 48} sweeps", r)
     results["eikonal"] = r
+
+
+def tiled_path(torch, lt, args, cfg, spectrum, pupil, src, results) -> None:
+    """The --tiled trace: one 8192^2 chip, and the set-up a tile pays."""
+    from lithographysimulator_tpu_torch.ops import hopkins, resize
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    big_n, n = 8192, cfg.n
+    halo = lt.default_halo(cfg)
+    tiles, step = tile_layout(big_n, n, halo)
+    chip = lt.lines_and_spaces(lt.OpticsConfig(pixel_number=big_n),
+                               line_width_px=n // 16, pitch_px=n // 8,
+                               device="cuda").geometry.clone()
+    for r in range(step, big_n, step):
+        for c in range(step, big_n, step):
+            chip[r - 20:r + 20, c - 20:c + 20] = 1.0
+    socs = lt.randomized_socs(pupil, src, cfg, rank=args.rank)
+    r = trace(torch, lambda: lt.tiled_socs_image(chip, socs, cfg))
+    show(f"{big_n}^2 tiled_socs_image, {tiles * tiles} tiles of {n}^2 (halo "
+         f"{halo}), rank {args.rank}, int8", r, tiles * tiles * -(-args.rank // 4))
+    int8 = sum(r["by_group"].get(g, 0.0) for g in INT8)
+    spectrum_ms = (r["by_group"].get("cuFFT", 0.0)
+                   + r["by_group"].get("cuBLAS GEMM", 0.0))
+    rest = r["kernel_ms"] - int8 - spectrum_ms
+    gap = (r["wall_ms"] - r["kernel_ms"]) / tiles ** 2
+    untraced_gap = (r["untraced_wall_ms"] - r["kernel_ms"]) / tiles ** 2
+    r["tiles"] = tiles * tiles
+    r["split_ms"] = {"int8 kernels": int8, "spectrum (cuFFT, resize GEMMs)":
+                     spectrum_ms, "crop, stitch, pad, elementwise": rest}
+    r["host_gap_per_tile_ms"] = gap
+    r["untraced_host_gap_per_tile_ms"] = untraced_gap
+    print(f"  device time a tile: {r['kernel_ms'] / tiles ** 2:.3f} ms (int8 "
+          f"kernels {int8 / tiles ** 2:.3f}, spectrum {spectrum_ms / tiles ** 2:.3f}, "
+          f"crop/stitch/pad/elementwise {rest / tiles ** 2:.3f}); host gap a "
+          f"tile {gap:.3f} ms traced, {untraced_gap:.3f} ms untraced (untraced "
+          f"wall minus traced device time); "
+          f"{tiles * tiles / r['untraced_wall_ms'] * 1e3:.2f} tiles/s untraced",
+          flush=True)
+    results["tiled_8192"] = r
+
+    def apply():
+        lt.socs_image(spectrum, socs, cfg)
+
+    def apply_fresh():  # the set-up every apply paid before it was cached
+        hopkins._int8_chirp.cache_clear()
+        resize._interp_matrix_on.cache_clear()
+        apply()
+
+    times = {"fresh set-up": [], "cached set-up": []}
+    apply()
+    for rep in range(4):  # in turns: fresh, cached, cached, fresh
+        for tag in (("fresh set-up", "cached set-up") if rep % 2 == 0
+                    else ("cached set-up", "fresh set-up")):
+            fn = apply_fresh if tag.startswith("fresh") else apply
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            times[tag].append(1e3 * (time.perf_counter() - t0) / 10)
+    apply()  # leave the caches filled
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"  {n}^2 rank-{args.rank} apply, wall a call (median of 4 runs of "
+          f"10, in turns): {med}; samples {times}", flush=True)
+    results["apply_setup_ms"] = {"median": med, "samples": times}
 
 
 if __name__ == "__main__":
