@@ -197,6 +197,39 @@ peak and launches, and fails if it launched no kernel:
 30. every kernel launched in phases 27-29, window_product_limbs as often
     as row_limb_gemm.
 
+Optimization (optimize.py, models/sraf.py, models/multipatterning.py) at
+phase 4's optics through the int8 kernels' gradient (the backward
+recomputes in float32 and launches no int8 kernel); each phase prints its
+wall time, memory peak and launches, and fails if it launched no kernel:
+
+31. SMO at 1024^2: the target is the exact forward of the design over all
+    49,400 points; optimize_socs, mask only, rank 64, 20 steps from a
+    uniform 0.4 (the loss must fall by half), its first loss within 1e-5
+    (relative) of the same loss formed through socs_image on the f32
+    matmul engine with the same kernels, and one mask step's latent
+    gradient on int8 within 1e-5 * max|g| of the matmul engine's; then on
+    every 41st point optimize (exact Abbe, 5 steps) and the alternating
+    optimize_socs (optimize_source, 2 x (a warm build, 5 mask steps, one
+    exact source step)): the losses fall and the source logits move;
+32. fit_aberrations through a 3-plane focal stack (-60, 0, 60 nm) on every
+    41st point, 10 coefficients, 6 steps at learning rate 0.01 (0.05, the
+    default, overshoots the 0.02-0.05 wave terms in so few steps), against
+    images the port formed at known coefficients: the loss falls; the coefficient error against
+    the truth is printed;
+33. opc_correct on every 41st point, 5 steps, with the printed fidelity
+    before and after; opc_correct_pw over 3 x 3 (defocus, dose) corners at
+    rank 64, 5 steps, which with its fidelity (a rank-64 SOCS image on the
+    matmul engine) must launch no int8 kernel; both losses fall;
+34. opc_correct_tiled on a 2048^2 chip (phase 27's layout) through 3 x 3
+    tiles of 1024^2 (96 px halo), rank 64, 10 steps, 1 sweep, with
+    fidelity_before and fidelity_after as the opc subcommand forms them
+    (the IoU must not fall) and the progress fractions; then the smo
+    (--forward socs), opc (with the MRC flags), fitaberr (on images
+    formed here) and lele subcommands at 256^2, the opc chip and lele at
+    512^2, each with --device cuda;
+35. every kernel launched in phases 31-34, window_product_limbs as often
+    as row_limb_gemm.
+
 Run time on one H100 is about 6 minutes, most of it phase 4's int8 run,
 phase 5's host oracle, phase 8's exact image, phases 13 and 15's exact
 images, phase 20's fits and film slabs, and phases 27-29's full chips.
@@ -217,8 +250,8 @@ The last stdout line is {"ok": true, "device": {...}}; the line before it
 is nvidia-smi's name and power limit, and the one before that lists each
 kernel with its launches, error, times and bound (launches on phases 3-5,
 socs_launches on phases 8-11, vector_launches on phases 13-16,
-m3d_launches on phases 18-20, resist_launches on phases 22-25 and
-tiled_launches on phases 27-29; ms,
+m3d_launches on phases 18-20, resist_launches on phases 22-25,
+tiled_launches on phases 27-29 and optimize_launches on phases 31-34; ms,
 library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
 and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 """
@@ -283,6 +316,14 @@ FEM_DOSES = (0.8, 0.9, 1.0, 1.1, 1.2)  # the fem CLI's default doses
 TOL_TILE_CORE = 1e-4  # tests/test_tiled.py:81-103
 TOL_STREAM = 1e-6  # tests/test_tiled_stream.py:24-30
 TOL_SCAN = 1e-5  # tests/test_tiled.py:75-78
+OPT_N = 1024  # phases 31-34: phase 4's optics, and phase 34's tile
+OPT_RANK = 64  # optimize_socs' and the OPC functions' default rank
+OPT_BIG_N = 2048  # phase 34's chip: 3 x 3 tiles of 1024^2 at the 96 px halo
+CLI_OPT_N = 256  # phase 34's smo and fitaberr, and the opc tile
+CLI_OPT_BIG_N = 512  # phase 34's opc chip and lele grid
+SMO_STEPS = 20
+TOL_SMO_LOSS = 1e-5  # the int8 history's first loss against the matmul one
+TOL_OPT_GRAD = 1e-5  # * max|g|, the int8 mask-step gradient against matmul
 
 
 def log(msg: str) -> None:
@@ -1981,6 +2022,293 @@ def phase_tiled_rest(torch, lt, ik, launches: dict, fem: dict) -> None:
     _phase_end(torch, ik, 29, t0, launches, True)
 
 
+# ---------------------------------------------------------------------------
+# Optimization: optimize.py, models/sraf.py, models/multipatterning.py
+# ---------------------------------------------------------------------------
+
+def _opt_setup(lt, n: int):
+    """Phase 4's optics at n^2 on DEVICE: lines and spaces n/16 on n/8 px,
+    the quasar sigma 0.4/0.8."""
+    cfg = lt.OpticsConfig(pixel_number=n)
+    mask = lt.lines_and_spaces(cfg, line_width_px=n // 16, pitch_px=n // 8,
+                               device=DEVICE)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    return cfg, mask, src
+
+
+def _fell(tag: str, hist, factor: float = 1.0) -> None:
+    """The loss history is finite and its last value below ``factor`` times
+    its first."""
+    ok = np.isfinite(hist).all() and hist[-1] < factor * hist[0]
+    log(f"  {tag}: loss {hist[0]:.6e} -> {hist[-1]:.6e} over {len(hist)} "
+        f"values (must fall below {factor:g}x) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: loss did not fall: {hist}")
+
+
+def phase_smo(torch, lt, ik, launches: dict) -> None:
+    """Phase 31: SMO at 1024^2 through the int8 kernels' gradient."""
+    from lithographysimulator_tpu_torch import optimize as opt
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+
+    t0 = _phase_start(torch, ik)
+    cfg, mask, src = _opt_setup(lt, OPT_N)
+    pts = source_points(src)
+    shifts, weights = _padded(pts, 4)
+    problem = opt.SMOProblem(config=cfg)
+    ab = np.zeros(1, np.float32)
+    with torch.no_grad():
+        target, t = _timed(torch, lambda: opt.forward(
+            opt.init_params(problem, mask.geometry), ab, shifts, weights,
+            problem))
+    log(f"[phase 31] {OPT_N}^2 SMO, {pts.live_count} points; the target "
+        f"(the exact forward of the design, int8): {t:.3f} s")
+    start = np.full((cfg.n, cfg.n), 0.4, np.float32)
+    (params, hist), t = _timed(torch, lambda: opt.optimize_socs(
+        problem, target, start, ab, shifts, weights, steps=SMO_STEPS,
+        learning_rate=0.2, rank=OPT_RANK))
+    log(f"  optimize_socs, mask only, rank {OPT_RANK}, {SMO_STEPS} steps: "
+        f"{t:.3f} s with the build ({t / SMO_STEPS:.4f} s a step)")
+    _fell("optimize_socs (mask only)", hist, 0.5)
+    # the same kernels again (the build is seeded), and the first loss
+    # formed here on the f32 matmul engine
+    from lithographysimulator_tpu_torch.metrology import _builder
+
+    w = torch.as_tensor(weights, device=DEVICE)
+    socs, _ = _builder(cfg, OPT_RANK, opt._source_map_from_points(
+        shifts, w, cfg.n), DEVICE, polarization=None, apodize=True,
+        chromatic=None)(ab, return_basis=True)
+    latent0 = opt.latent_from_mask(
+        torch.as_tensor(start, device=DEVICE), problem.mask_steepness)
+
+    def socs_loss(latent, engine):
+        image = lt.socs_image(lt.mask_spectrum(opt.mask_from_latent(
+            latent, problem.mask_steepness), cfg), socs, cfg, engine=engine)
+        return torch.mean((image / w.sum() - target) ** 2)
+
+    with torch.no_grad():
+        first = float(socs_loss(latent0, "matmul"))
+    check("first optimize_socs loss (int8) against the matmul engine's, "
+          "relative", abs(hist[0] - first) / abs(first), TOL_SMO_LOSS)
+    grads = {}
+    for engine in ("int8", "matmul"):
+        leaf = latent0.clone().requires_grad_()
+        loss, t_f = _timed(torch, lambda: socs_loss(leaf, engine))
+        _, t_b = _timed(torch, loss.backward)
+        grads[engine] = leaf.grad
+        log(f"  a rank-{OPT_RANK} SOCS mask step on {engine}: forward "
+            f"{t_f:.4f} s, backward {t_b:.4f} s")
+    scale = float(grads["matmul"].abs().max())
+    check("mask-latent gradient, int8 against matmul, max|dg|/max|g|",
+          float((grads["int8"] - grads["matmul"]).abs().max()) / scale,
+          TOL_OPT_GRAD)
+    g = grads["int8"]
+    log(f"  max|g| {scale:.3e}; share of the gradient's squares that overflow "
+        f"float32 (why Adam steps float64 copies, ROADMAP D10): "
+        f"{float(torch.isinf(g * g).float().mean()):.4f}")
+    del socs, grads
+
+    sub = source_points(_subset(src, pts, SUBSET_K))
+    s_shifts, s_weights = _padded(sub, 4)
+    with torch.no_grad():
+        s_target = opt.forward(opt.init_params(problem, mask.geometry), ab,
+                               s_shifts, s_weights, problem)
+    (params, hist), t = _timed(torch, lambda: opt.optimize(
+        problem, s_target, start, ab, s_shifts, s_weights, steps=5,
+        learning_rate=0.2))
+    log(f"  optimize (exact Abbe), every {SUBSET_K}th point ({sub.live_count}, "
+        f"{len(s_weights) // 4} chunks), 5 steps: {t:.3f} s ({t / 5:.4f} s a "
+        "step)")
+    _fell("optimize", hist)
+    src_problem = opt.SMOProblem(config=cfg, optimize_source=True)
+    w0 = np.maximum(s_weights, 1e-3)
+    (params, hist), t = _timed(torch, lambda: opt.optimize_socs(
+        src_problem, s_target, start, ab, s_shifts, s_weights, steps=10,
+        learning_rate=0.2, rank=OPT_RANK, mask_steps_per_build=5,
+        source_weights_init=w0))
+    moved = float((params["source_logits"].cpu()
+                   - torch.log(torch.as_tensor(w0))).abs().max())
+    log(f"  optimize_socs, alternating, 2 x (a warm build, 5 mask steps, one "
+        f"source step): {t:.3f} s; the source logits moved {moved:.3e}")
+    _fell("optimize_socs (alternating)", hist)
+    if not moved > 1e-4:
+        raise AssertionError("the alternating SMO left the source where it was")
+    _phase_end(torch, ik, 31, t0, launches, True)
+
+
+def phase_fit(torch, lt, ik, launches: dict) -> None:
+    """Phase 32: aberration retrieval through a 3-plane focal stack."""
+    from lithographysimulator_tpu_torch import optimize as opt
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+
+    t0 = _phase_start(torch, ik)
+    cfg, mask, src = _opt_setup(lt, OPT_N)
+    sub = source_points(_subset(src, source_points(src), SUBSET_K))
+    shifts, weights = _padded(sub, 4)
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    truth = np.array([0, 0, 0.02, 0.05, 25.0, 0, 0, 0.04, 0, 0], np.float32)
+    planes = []
+    with torch.no_grad():
+        for off in FOCUS_PLANES:
+            ab = truth.copy()
+            ab[4] += off
+            planes.append(lt.abbe_image_points(
+                spectrum, lt.pupil_function(ab, cfg, device=DEVICE), shifts,
+                weights, cfg, device=DEVICE, normalize=True))
+    (coeffs, hist), t = _timed(torch, lambda: opt.fit_aberrations(
+        torch.stack(planes), spectrum, shifts, weights, cfg, n_coeffs=10,
+        steps=6, learning_rate=0.01, defocus_nm=FOCUS_PLANES))
+    log(f"[phase 32] fit_aberrations at {OPT_N}^2, {len(FOCUS_PLANES)} planes "
+        f"{FOCUS_PLANES} nm, every {SUBSET_K}th point ({sub.live_count}), 10 "
+        f"coefficients, 6 steps at learning rate 0.01: {t:.3f} s "
+        f"({t / 6:.4f} s a step of 3 planes)")
+    _fell("fit_aberrations", hist)
+    err = coeffs.cpu().numpy() - truth
+    log(f"  fitted {np.round(coeffs.cpu().numpy(), 5).tolist()}; truth "
+        f"{truth.tolist()}; error {np.round(err, 5).tolist()} (6 steps from 0)")
+    _phase_end(torch, ik, 32, t0, launches, True)
+
+
+def _fidelity(lt, profile, target, cfg) -> dict:
+    """pattern_fidelity with the EPE keys cmd_opc reports."""
+    out = lt.pattern_fidelity(profile, target, cfg)
+    epe = lt.edge_placement_errors(profile, target, cfg)
+    out.update({k: epe[k] for k in ("mean_abs_epe_nm", "max_abs_epe_nm",
+                                    "matched", "missing")})
+    return out
+
+
+def phase_opc(torch, lt, ik, launches: dict) -> None:
+    """Phase 33: resist-aware OPC on the int8 gradient, and the
+    process-window OPC on the f32 matmul engine (no int8 launch)."""
+    from lithographysimulator_tpu_torch import optimize as opt
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+
+    t0 = _phase_start(torch, ik)
+    cfg, mask, src = _opt_setup(lt, OPT_N)
+    sub = source_points(_subset(src, source_points(src), SUBSET_K))
+    shifts, weights = _padded(sub, 4)
+    ab = np.zeros(1, np.float32)
+    resist = lt.ResistModel(threshold=0.35, steepness=30.0)
+    design = mask.geometry
+
+    def printed(geom):
+        with torch.no_grad():
+            img = lt.abbe_image_points(
+                lt.mask_spectrum(geom, cfg),
+                lt.pupil_function(ab, cfg, device=DEVICE), shifts, weights,
+                cfg, device=DEVICE, normalize=True)
+        return _fidelity(lt, resist.develop_binary(img, cfg), design, cfg)
+
+    before = printed(design)
+    (corrected, hist), t = _timed(torch, lambda: opt.opc_correct(
+        design, ab, shifts, weights, opt.SMOProblem(config=cfg),
+        resist=resist, steps=5))
+    log(f"[phase 33] opc_correct at {OPT_N}^2, every {SUBSET_K}th point, 5 "
+        f"steps: {t:.3f} s ({t / 5:.4f} s a step)")
+    _fell("opc_correct", hist)
+    log(f"  fidelity before {json.dumps(before)}")
+    log(f"  fidelity after  {json.dumps(printed(corrected))}")
+
+    before_pw = dict(ik.LAUNCHES)
+    nominal = lt.randomized_socs(lt.pupil_function(ab, cfg, device=DEVICE),
+                                 src, cfg, rank=OPT_RANK)
+
+    def printed_pw(geom):
+        with torch.no_grad():
+            img = lt.socs_image(lt.mask_spectrum(geom, cfg), nominal, cfg,
+                                engine="matmul")
+        return _fidelity(lt, resist.develop_binary(img, cfg), design, cfg)
+
+    before = printed_pw(design)
+    (corrected, rep), t = _timed(torch, lambda: opt.opc_correct_pw(
+        design, cfg, src, resist=resist, steps=5, rank=OPT_RANK))
+    after = printed_pw(corrected)
+    pw_launches = {k: ik.LAUNCHES[k] - before_pw[k] for k in KERNELS}
+    log(f"  opc_correct_pw, 3 x 3 corners, rank {OPT_RANK}, 5 steps: {t:.3f} "
+        f"s with the three builds; corner losses "
+        f"{np.round(rep['corner_losses'], 6).tolist()}")
+    _fell("opc_correct_pw", rep["loss_history"])
+    log(f"  nominal fidelity (rank-{OPT_RANK} SOCS, matmul) before "
+        f"{json.dumps(before)}")
+    log(f"  nominal fidelity after  {json.dumps(after)}")
+    log(f"  int8 launches of opc_correct_pw and its fidelity: {pw_launches}")
+    if any(pw_launches.values()):
+        raise AssertionError(f"opc_correct_pw launched int8 kernels: {pw_launches}")
+    _phase_end(torch, ik, 33, t0, launches, True)
+
+
+def phase_opc_tiled_cli(torch, lt, ik, launches: dict) -> None:
+    """Phase 34: full-chip OPC through 1024^2 tiles, and the smo, opc,
+    fitaberr and lele subcommands."""
+    import tempfile
+
+    from lithographysimulator_tpu_torch import cli
+    from lithographysimulator_tpu_torch import optimize as opt
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    t0 = _phase_start(torch, ik)
+    cfg, _, src = _opt_setup(lt, OPT_N)
+    halo = lt.default_halo(cfg)
+    tiles, step = tile_layout(OPT_BIG_N, OPT_N, halo)
+    chip = _chip_layout(lt, torch, OPT_BIG_N, OPT_N, step)
+    resist = lt.ResistModel(threshold=0.35, steepness=30.0)
+
+    def fidelity(mask_big):  # as cmd_opc forms it
+        img = lt.tiled_focus_images(mask_big, cfg, src, [0.0], rank=OPT_RANK,
+                                    halo=halo, device=DEVICE)[0]
+        return _fidelity(lt, ((img / img.max()) > resist.threshold).float(),
+                         chip, cfg)
+
+    before = fidelity(chip)
+    seen = []
+    corrected, t = _timed(torch, lambda: opt.opc_correct_tiled(
+        chip, cfg, src, resist=resist, halo=halo, steps=10, rank=OPT_RANK,
+        progress_cb=seen.append))
+    after = fidelity(corrected)
+    log(f"[phase 34] opc_correct_tiled, {OPT_BIG_N}^2 through {tiles * tiles} "
+        f"tiles of {OPT_N}^2 (halo {halo}), rank {OPT_RANK}, 10 steps, 1 sweep: "
+        f"{t:.3f} s with the build ({t / (10 * tiles * tiles):.4f} s a tile "
+        f"step); progress {np.round(seen, 4).tolist()}")
+    log(f"  fidelity_before {json.dumps(before)}")
+    log(f"  fidelity_after  {json.dumps(after)}")
+    if not (corrected.shape == (OPT_BIG_N, OPT_BIG_N)
+            and np.isfinite(corrected).all()
+            and len(seen) == tiles * tiles and seen[-1] == 1.0
+            and after["iou"] >= before["iou"]):
+        raise AssertionError("opc_correct_tiled: bad mask, progress or IoU fell")
+    n, m = CLI_OPT_N, CLI_OPT_BIG_N
+    with tempfile.TemporaryDirectory() as tmp:
+        fit_cfg = lt.OpticsConfig(pixel_number=n)
+        fit_src = lt.LightSource(fit_cfg, sigma_out=0.2).classical()
+        paths = []
+        for off in FOCUS_PLANES:
+            ab = np.array([0, 0, 0.02, 0.05, 25.0 + off, 0, 0, 0.04], np.float32)
+            img = lt.simulate(lt.demo_bars(fit_cfg, device=DEVICE), fit_src,
+                              ab, device=DEVICE).image
+            paths.append(f"{tmp}/plane{len(paths)}.npy")
+            np.save(paths[-1], img.cpu().numpy())
+        common = ["--device", DEVICE, "--pixel-number", str(n)]
+        runs = {
+            "smo --forward socs": ["smo", *common, "--forward", "socs",
+                                   "--steps", "20"],
+            "opc": ["opc", *common, "--big-n", str(m), "--mask", "contacts",
+                    "--steps", "5", "--mrc-min-width", "50",
+                    "--mrc-min-area", "5000", "--mrc-repair"],
+            "fitaberr": ["fitaberr", *common, "--source", "classical",
+                         "--sigma-out", "0.2", "--images", *paths,
+                         "--defocus", *[str(d) for d in FOCUS_PLANES],
+                         "--steps", "4", "--lr", "0.01"],
+            "lele": ["lele", "--device", DEVICE, "--pixel-number", str(m),
+                     "--mask", "lines", "--source", "classical",
+                     "--sigma-out", "0.3", "--min-pitch", "200"],
+        }
+        for tag, argv in runs.items():
+            report, t = _timed(torch, lambda: _cli_report(cli, argv))
+            log(f"  CLI {tag} ({t:.3f} s): {json.dumps(report)}")
+    _phase_end(torch, ik, 34, t0, launches, True)
+
+
 def _fits_launched(fit_launches) -> None:
     """Phase 21's check of the fits alone: each int8 fit launched every
     kernel, one window_product_limbs a row_limb_gemm (no matmul fallback)."""
@@ -2091,6 +2419,20 @@ def main() -> int:
                              f"or window_product_limbs != row_limb_gemm: "
                              f"{tiled_launches}")
 
+    optimize_launches = {}  # phases 31-34, each counted and checked apart
+    phase_smo(torch, lt, ik, optimize_launches)
+    phase_fit(torch, lt, ik, optimize_launches)
+    phase_opc(torch, lt, ik, optimize_launches)
+    phase_opc_tiled_cli(torch, lt, ik, optimize_launches)
+    log("[phase 35]")
+    log(f"  launches in phases 31-34: {optimize_launches}")
+    missing = [k for k in KERNELS if optimize_launches.get(k, 0) <= 0]
+    if missing or (optimize_launches["window_product_limbs"]
+                   != optimize_launches["row_limb_gemm"]):
+        raise AssertionError(f"phases 31-34: kernels never launched {missing}, "
+                             f"or window_product_limbs != row_limb_gemm: "
+                             f"{optimize_launches}")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
          "launches": launches[k], **stats[k],
@@ -2099,7 +2441,8 @@ def main() -> int:
          "vector_launches": vector_launches[k],
          "m3d_launches": m3d_launches[k],
          "resist_launches": resist_launches[k],
-         "tiled_launches": tiled_launches[k]}
+         "tiled_launches": tiled_launches[k],
+         "optimize_launches": optimize_launches[k]}
         for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

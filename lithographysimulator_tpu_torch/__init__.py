@@ -9,7 +9,10 @@ then the resist (lumped, Mack, depth-resolved with the eikonal 3-D
 develop, stochastic Monte-Carlo ensembles, calibration, CD metrology),
 and the full chip (tiled imaging of masks larger than one field, the
 focus-exposure matrix, ORC, MEEF maps, defect dispositions, mask rule
-checks) on a CUDA device through hand-written int8 limb kernels
+checks), optimization through the imaging gradient (source-mask
+optimization, aberration retrieval, resist-aware, full-chip and
+process-window OPC: :mod:`.optimize`), assist features and multiple
+patterning, on a CUDA device through hand-written int8 limb kernels
 (``csrc/intensity_int8.cu``, differentiable: the backward recomputes in
 float32) or on the CPU through their plain PyTorch versions. Every entry
 point takes an explicit ``device``.
@@ -34,6 +37,8 @@ from .metrology import (apply_dose_map, defect_printability,
 from .models.mask import (Mask, alternating_psm, attenuated_psm, contact_holes,
                           demo_bars, from_array, lines_and_spaces)
 from .models.mrc import MaskRules, mrc_check, mrc_clean
+from .models.multipatterning import (decompose_lele, decompose_multipatterning,
+                                     lele_print, multipatterning_print)
 from .models.calibrate import calibrate_resist, gauge_cd
 from .models.pupil import Pupil, pupil_function
 from .models.resist import (DepthResist, MackResist, ResistModel,
@@ -43,6 +48,7 @@ from .models.resist import (DepthResist, MackResist, ResistModel,
                             meef_table, nils_table, pattern_fidelity,
                             process_window, swing_curve)
 from .models.source import LightSource
+from .models.sraf import sraf_band, sraf_insert, sraf_print_check
 from .models.stochastic import (StochasticResist, acf_correlation_length,
                                 edge_psd, exposure_summary, exposure_trials,
                                 fit_psd_model, stochastic_ensemble,
@@ -128,6 +134,8 @@ __all__ = [
     "chromatic_aberrations",
     "contact_holes",
     "critical_dimension",
+    "decompose_lele",
+    "decompose_multipatterning",
     "default_halo",
     "defect_printability",
     "demo_bars",
@@ -153,6 +161,7 @@ __all__ = [
     "gauge_cd",
     "godunov_update",
     "hotspots",
+    "lele_print",
     "lines_and_spaces",
     "mask_spectrum",
     "matmul_compensated",
@@ -162,6 +171,7 @@ __all__ = [
     "model_to_json",
     "mrc_check",
     "mrc_clean",
+    "multipatterning_print",
     "nearest_pow2",
     "nils_table",
     "noll_index_to_mn",
@@ -188,6 +198,9 @@ __all__ = [
     "source_points",
     "spectrum_direct",
     "spectrum_fft",
+    "sraf_band",
+    "sraf_insert",
+    "sraf_print_check",
     "stochastic_ensemble",
     "stochastic_psd",
     "stochastic_volume_ensemble",

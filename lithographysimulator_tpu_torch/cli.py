@@ -1,12 +1,13 @@
 """Command-line interface of the port: the ``simulate``, ``socs``,
-``m3dcal``, ``focus``, ``resist3d``, ``stochastic``, ``calibrate`` and
-``fem`` subcommands.
+``m3dcal``, ``focus``, ``resist3d``, ``stochastic``, ``calibrate``,
+``fem``, ``smo``, ``opc``, ``fitaberr`` and ``lele`` subcommands.
 
 Same flags and JSON report keys as ``python -m lithographysimulator_tpu``'s
 subcommands of those names for the masks, sources, solvers and options this
 port has, plus ``--device`` (default ``cuda``) and, for ``simulate``,
 ``--socs-rank``. ``--mask-file`` takes ``.npy`` arrays, and ``fem
---stream`` is refused (both need ``io/layout.py``, not ported yet):
+--stream`` and ``lele --gds`` are refused (they need ``io/layout.py`` and
+``io/contours.py`` with ``io/gdsii.py``, not ported yet):
 
     python -m lithographysimulator_tpu_torch simulate --device cuda \
         --pixel-number 512 --source quasar --sigma-in 0.4 --sigma-out 0.8 \
@@ -29,6 +30,17 @@ port has, plus ``--device`` (default ``cuda``) and, for ``simulate``,
         --pixel-number 1024 --big-n 8192 --mask lines --rank 128
     python -m lithographysimulator_tpu_torch resist3d --device cuda \
         --pixel-number 1024 --big-n 4096 --mask lines --film --barc 37
+    python -m lithographysimulator_tpu_torch smo --device cuda \
+        --pixel-number 256 --forward socs --steps 50 --out smo.npy
+    python -m lithographysimulator_tpu_torch opc --device cuda \
+        --pixel-number 1024 --big-n 2048 --mask contacts --steps 20 \
+        --mrc-min-width 50 --mrc-repair --out opc.npy
+    python -m lithographysimulator_tpu_torch fitaberr --device cuda \
+        --pixel-number 256 --images m0.npy m1.npy m2.npy \
+        --defocus -60 0 60 --steps 100
+    python -m lithographysimulator_tpu_torch lele --device cuda \
+        --pixel-number 512 --mask lines --source classical --sigma-out 0.3 \
+        --min-pitch 200 --rank 48
 """
 
 from __future__ import annotations
@@ -660,6 +672,216 @@ def cmd_fem(args) -> int:
     return 0
 
 
+def cmd_smo(args) -> int:
+    """Inverse lithography on --device: optimize the mask so its aerial
+    image matches the target mask's image (the exact Abbe forward, or the
+    SOCS kernels with --forward socs); reports the loss and the print's
+    fidelity to the target layout."""
+    import torch
+
+    from .models.resist import ResistModel, pattern_fidelity
+    from .optimize import (SMOProblem, forward, init_params, mask_from_latent,
+                           optimize, optimize_socs)
+
+    config = _build_config(args)
+    target_mask = _build_mask(args, config)
+    source = _build_source(args, config)
+    shifts, weights, _ = _padded_source(source, args.chunk * 8)
+    problem = SMOProblem(config=config, chunk=args.chunk,
+                         mask_steepness=args.steepness,
+                         mask3d=_build_mask3d(args))
+    ab = np.asarray(_aberrations(args) or [0.0], np.float32)
+    # With an M3D model the TARGET image is the thin-mask (design-intent)
+    # print; the optimizer pre-compensates the topography by running its
+    # own forward THROUGH the model (M3D-aware ILT).
+    thin_problem = dataclasses.replace(problem, mask3d=None)
+    with torch.no_grad():
+        target = forward(init_params(problem, target_mask.geometry), ab,
+                         shifts, weights, thin_problem)
+    start = np.full((config.n, config.n), 0.4, np.float32)
+    t0 = time.perf_counter()
+    if args.forward == "socs":
+        params, history = optimize_socs(
+            problem, target, start, ab, shifts, weights, steps=args.steps,
+            learning_rate=args.lr, rank=args.rank)
+    else:
+        params, history = optimize(problem, target, start, ab, shifts,
+                                   weights, steps=args.steps,
+                                   learning_rate=args.lr)
+    elapsed = time.perf_counter() - t0  # the history's read-back waited
+
+    optimized = mask_from_latent(params["mask_latent"], problem.mask_steepness)
+    with torch.no_grad():
+        final_img = forward(params, ab, shifts, weights, problem)
+    model = ResistModel(threshold=args.threshold)
+    fid = pattern_fidelity(model.develop_binary(final_img, config),
+                           target_mask.geometry.abs(), config)
+    print(json.dumps({
+        "steps": args.steps,
+        "loss_start": history[0], "loss_end": history[-1],
+        "print_fidelity_vs_target_layout": fid,
+        "wall_clock_s": round(elapsed, 3),
+    }))
+    if args.out:
+        np.save(args.out, optimized.cpu().numpy())
+        print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_opc(args) -> int:
+    """Full-chip resist-aware OPC on the tiled SOCS path, on --device;
+    reports the printed pattern's fidelity (IoU, XOR area, EPE) before and
+    after, and with the --mrc-* flags the mask rule check (and repair)."""
+    from .metrology import tiled_focus_images
+    from .models.resist import (ResistModel, edge_placement_errors,
+                                pattern_fidelity)
+    from .optimize import opc_correct_tiled
+
+    tile_config = _build_config(args)
+    big_n = args.big_n or tile_config.n
+    big_cfg = dataclasses.replace(tile_config, pixel_number=big_n)
+    target = _build_mask(args, big_cfg).geometry.abs()
+    source = _build_source(args, tile_config)
+    resist = ResistModel(threshold=args.threshold, steepness=30.0)
+    polarization = _polarization(args)
+    mask3d = _build_mask3d(args)
+
+    def fidelity(mask_big):
+        img = tiled_focus_images(mask_big, tile_config, source, [0.0],
+                                 rank=args.rank, halo=args.halo,
+                                 polarization=polarization, mask3d=mask3d,
+                                 device=args.device)[0]
+        profile = ((img / img.max()) > resist.threshold).float()
+        out = pattern_fidelity(profile, target, tile_config)
+        epe = edge_placement_errors(profile, target, tile_config)
+        out.update({k: epe[k] for k in ("mean_abs_epe_nm", "max_abs_epe_nm",
+                                        "matched", "missing")})
+        return out
+
+    t0 = time.perf_counter()
+    corrected = opc_correct_tiled(
+        target, tile_config, source, resist=resist, halo=args.halo,
+        steps=args.steps, learning_rate=args.lr, rank=args.rank,
+        sweeps=args.sweeps, polarization=polarization,
+        chromatic=_build_chromatic(args), mask3d=mask3d)
+    elapsed = time.perf_counter() - t0
+    report = {
+        "big_n": big_n, "tile_n": tile_config.n, "steps": args.steps,
+        "sweeps": args.sweeps,
+        "fidelity_before": fidelity(target),
+        "fidelity_after": fidelity(corrected),
+        "wall_clock_s": round(elapsed, 3),
+    }
+    if args.mrc_min_width or args.mrc_min_space or args.mrc_min_area:
+        from .models.mrc import MaskRules, mrc_check, mrc_clean
+
+        rules = MaskRules(min_width_nm=args.mrc_min_width,
+                          min_space_nm=args.mrc_min_space,
+                          min_area_nm2=args.mrc_min_area)
+        check = mrc_check(corrected, tile_config, rules)
+        report["mrc"] = {k: v for k, v in check.items()
+                         if not isinstance(v, np.ndarray)}
+        if args.mrc_repair and not check["clean"]:
+            corrected = mrc_clean(corrected, tile_config, rules)
+            recheck = mrc_check(corrected, tile_config, rules)
+            report["mrc_after_repair"] = {
+                k: v for k, v in recheck.items()
+                if not isinstance(v, np.ndarray)}
+            report["fidelity_after_repair"] = fidelity(corrected)
+    print(json.dumps(report))
+    if args.out:
+        np.save(args.out, corrected)
+        print(f"wrote {args.out}")
+    return 0
+
+
+def cmd_fitaberr(args) -> int:
+    """Scanner aberration retrieval on --device: fit OSA Zernike
+    coefficients to measured (through-focus) aerial images of a known test
+    structure. The mask spectrum is formed and kept on the device."""
+    from .ops.fraunhofer import mask_spectrum
+    from .optimize import fit_aberrations
+
+    config = _build_config(args)
+    mask = _build_mask(args, config)
+    source = _build_source(args, config)
+    shifts, weights, _ = _padded_source(source, args.chunk * 8)
+    images = np.stack([np.load(p).astype(np.float32) for p in args.images])
+    if args.defocus is not None and len(args.defocus) != len(images):
+        raise SystemExit(f"{len(images)} --images vs "
+                         f"{len(args.defocus)} --defocus planes")
+    spectrum = mask_spectrum(mask.geometry, config)
+    target = images if args.defocus is not None else images[0]
+    t0 = time.perf_counter()
+    coeffs, history = fit_aberrations(
+        target, spectrum, shifts, weights, config,
+        n_coeffs=args.n_coeffs, steps=args.steps, learning_rate=args.lr,
+        chunk=args.chunk, defocus_nm=args.defocus)
+    print(json.dumps({
+        "coefficients": [round(float(c), 6) for c in coeffs.cpu().numpy()],
+        "loss_initial": history[0],
+        "loss_final": history[-1],
+        "planes": len(images),
+        "wall_clock_s": round(time.perf_counter() - t0, 3),
+    }))
+    return 0
+
+
+def cmd_lele(args) -> int:
+    """Multiple patterning on --device: decompose the layout into --masks
+    masks (2 = LELE, 3 = LELELE, ...), print each and the single exposure
+    through the tiled SOCS path, report feature recovery. --gds is
+    refused: writing the masks as GDSII needs io/contours.py and
+    io/gdsii.py, which this port does not have yet."""
+    from .models.multipatterning import multipatterning_print
+    from .models.resist import ResistModel, feature_table
+
+    if args.gds:
+        raise SystemExit("lele --gds writes the masks through io/contours.py "
+                         "and io/gdsii.py, which this port does not have "
+                         "yet (ROADMAP.md Queue 1, the host modules)")
+    config = _build_config(args)
+    mask = _build_mask(args, config).geometry.abs()
+    source = _build_source(args, config)
+    overlay = None
+    if args.overlay:
+        if len(args.overlay) != 2 * args.masks:
+            raise SystemExit(f"--overlay needs dy dx per mask "
+                             f"({2 * args.masks} numbers for "
+                             f"--masks {args.masks})")
+        overlay = [(args.overlay[2 * i], args.overlay[2 * i + 1])
+                   for i in range(args.masks)]
+    t0 = time.perf_counter()
+    out = multipatterning_print(
+        mask, config, source, min_pitch_nm=args.min_pitch,
+        masks=args.masks, overlay_nm=overlay,
+        resist=ResistModel(threshold=args.threshold), rank=args.rank,
+        halo=args.halo, polarization=_polarization(args),
+        chromatic=_build_chromatic(args))
+    elapsed = time.perf_counter() - t0
+
+    def feats(m):
+        return int(feature_table(m, config, axis=1)["row"].size)
+
+    print(json.dumps({
+        "masks": args.masks,
+        "features": out["features"],
+        "conflict_edges": out["conflict_edges"],
+        "violations": out["violations"],
+        "cuts_target": feats(mask),
+        "cuts_lele": feats(out["profile"]),
+        "cuts_single": feats(out["profile_single"]),
+        "wall_clock_s": round(elapsed, 3),
+    }))
+    if args.out:
+        np.savez(args.out, profile=out["profile"],
+                 profile_single=out["profile_single"],
+                 **{f"mask_{chr(ord('a') + i)}": m
+                    for i, m in enumerate(out["masks"])})
+        print(f"wrote {args.out}")
+    return 0
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on ('cuda', 'cuda:1', 'cpu')")
@@ -962,6 +1184,88 @@ def _add_fem(sub) -> None:
     p.set_defaults(func=cmd_fem)
 
 
+def _add_smo(sub) -> None:
+    p = sub.add_parser("smo", help="inverse lithography (mask optimization)")
+    _add_scene(p)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=0.2)
+    p.add_argument("--steepness", type=float, default=4.0)
+    p.add_argument("--threshold", type=float, default=0.4)
+    p.add_argument("--chunk", type=int, default=4)
+    p.add_argument("--forward", choices=("abbe", "socs"), default="abbe",
+                   help="mask-step forward model: exact per-point Abbe, "
+                        "or SOCS kernels (O(rank) work per step)")
+    p.add_argument("--rank", type=int, default=64,
+                   help="SOCS kernel rank for --forward socs")
+    p.add_argument("--out", default=None, help="optimized mask .npy path")
+    p.set_defaults(func=cmd_smo)
+
+
+def _add_opc(sub) -> None:
+    p = sub.add_parser(
+        "opc", help="full-chip resist-aware OPC (tiled SOCS path)")
+    _add_common(p)
+    p.add_argument("--big-n", type=int, default=None,
+                   help="full-chip layout size in px (default: one tile)")
+    p.add_argument("--steps", type=int, default=60)
+    p.add_argument("--sweeps", type=int, default=1)
+    p.add_argument("--lr", type=float, default=0.15)
+    p.add_argument("--threshold", type=float, default=0.35)
+    p.add_argument("--rank", type=int, default=64)
+    p.add_argument("--halo", type=int, default=None)
+    p.add_argument("--mrc-min-width", type=float, default=0.0,
+                   help="mask-rule check: min feature width (nm)")
+    p.add_argument("--mrc-min-space", type=float, default=0.0,
+                   help="mask-rule check: min space/gap (nm)")
+    p.add_argument("--mrc-min-area", type=float, default=0.0,
+                   help="mask-rule check: min feature area (nm^2)")
+    p.add_argument("--mrc-repair", action="store_true",
+                   help="morphologically repair MRC violations and "
+                        "re-report fidelity")
+    p.add_argument("--out", default=None, help="corrected mask .npy path")
+    p.set_defaults(func=cmd_opc)
+
+
+def _add_fitaberr(sub) -> None:
+    p = sub.add_parser(
+        "fitaberr", help="scanner aberration retrieval from measured "
+                         "through-focus aerial images")
+    _add_scene(p)
+    p.add_argument("--images", nargs="+", required=True,
+                   help="measured aerial images (.npy), one per plane")
+    p.add_argument("--defocus", type=float, nargs="+", default=None,
+                   help="stage defocus (nm) of each image; omit for a "
+                        "single-image fit (even-aberration signs then "
+                        "unresolvable)")
+    p.add_argument("--n-coeffs", type=int, default=10)
+    p.add_argument("--steps", type=int, default=300)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--chunk", type=int, default=4)
+    p.set_defaults(func=cmd_fitaberr)
+
+
+def _add_lele(sub) -> None:
+    p = sub.add_parser(
+        "lele", help="double patterning: decompose + composite print")
+    _add_common(p)
+    p.add_argument("--masks", type=int, default=2,
+                   help="number of patterning masks (2=LELE, 3=LELELE)")
+    p.add_argument("--overlay", type=float, nargs="+", default=None,
+                   help="scanner overlay error: dy dx nm per mask "
+                        "(2*masks numbers)")
+    p.add_argument("--min-pitch", type=float, default=200.0,
+                   help="minimum same-mask pitch (nm) for decomposition")
+    p.add_argument("--threshold", type=float, default=0.35)
+    p.add_argument("--rank", type=int, default=48)
+    p.add_argument("--halo", type=int, default=None)
+    p.add_argument("--out", default=None,
+                   help=".npz path for masks + profiles")
+    p.add_argument("--gds", default=None,
+                   help="write the decomposed masks as a GDS cell: needs "
+                        "io/contours.py and io/gdsii.py, refused")
+    p.set_defaults(func=cmd_lele)
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="lithographysimulator_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -999,6 +1303,10 @@ def _parser() -> argparse.ArgumentParser:
     _add_stochastic(sub)
     _add_calibrate(sub)
     _add_fem(sub)
+    _add_smo(sub)
+    _add_opc(sub)
+    _add_fitaberr(sub)
+    _add_lele(sub)
     return parser
 
 

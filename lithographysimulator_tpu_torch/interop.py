@@ -4,12 +4,13 @@ This system has no weights: an optics config, a mask, a source map and an
 aberration vector are its parameters (with, for vector, chromatic and
 perturbed imaging, a laser spectrum and an image perturbation; for thick
 masks an M3D model, for in-film imaging a wafer stack, and for the resist
-a resist or stochastic model, for mask rule checks a rule set), and a
-SOCS kernel set is the state a build leaves. Source maps and aberration vectors
+a resist or stochastic model, for mask rule checks a rule set, for
+optimization an SMO problem), and a SOCS kernel set is the state a build
+leaves. Source maps and aberration vectors
 cross as numpy arrays (``np.asarray(x)`` of either package's value), which
 every port entry point takes; the config, the mask, the spectrum, the
-perturbation, an M3D model, a wafer stack, the models, the mask rules and
-a kernel set need the helpers here. Nothing here imports jax.
+perturbation, an M3D model, a wafer stack, the models, the mask rules, an
+SMO problem and a kernel set need the helpers here. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .ops.filmstack import WaferStack
 from .ops.hopkins import SOCSKernels
 from .ops.mask3d import BoundaryLayer, EdgeKernelM3D
 from .ops.perturb import ImagePerturbation
+from .optimize import SMOProblem
 
 
 def _same_fields(cls, obj):
@@ -94,6 +96,19 @@ def mask_rules_from_jax(rules) -> MaskRules:
     """Port :class:`..models.mrc.MaskRules` with the same fields as
     ``rules`` (the JAX package's, or any object with them)."""
     return _same_fields(MaskRules, rules)
+
+
+def smo_problem_from_jax(problem) -> SMOProblem:
+    """Port :class:`..optimize.SMOProblem` with the same fields as
+    ``problem`` (the JAX package's, or any object with them): its config
+    through :func:`config_from_jax` and its thick-mask model, if any,
+    through :func:`mask3d_from_jax`."""
+    fields = {f.name: getattr(problem, f.name)
+              for f in dataclasses.fields(SMOProblem)}
+    fields["config"] = config_from_jax(problem.config)
+    if problem.mask3d is not None:
+        fields["mask3d"] = mask3d_from_jax(problem.mask3d)
+    return SMOProblem(**fields)
 
 
 def mask_from_numpy(geometry, config, *, device) -> Mask:

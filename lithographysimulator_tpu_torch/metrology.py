@@ -51,7 +51,7 @@ def _builder(tile_config: OpticsConfig, rank: int, source_map, device, *,
 
     rot = _channel_rotation_cached(tile_config, polarization, apodize,
                                    chromatic, str(device))
-    src = to_tensor(np.asarray(source_map, np.float32), device=device)
+    src = to_tensor(source_map, device=device, dtype=torch.float32)
 
     def build(aberrations, **kw):
         ab = np.asarray(aberrations, np.float32)

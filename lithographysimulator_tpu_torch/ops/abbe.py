@@ -414,8 +414,14 @@ def abbe_image_points(
     if solver == "gau23":
         image = _postprocess_gau23(image, config)
     if normalize:
-        total = float(weights.sum()) if total_weight is None else float(total_weight)
-        # all-dark source: a zero image, normalized or not
+        if total_weight is None:
+            # the sum stays on the device and in the graph: the weights'
+            # gradient has a term through it, as in the JAX package
+            total = weights.sum()
+            # all-dark source: a zero image, normalized or not
+            return torch.where(total > 0,
+                               image / torch.clamp(total, min=1e-30), 0.0)
+        total = float(total_weight)
         image = image / total if total > 0 else torch.zeros_like(image)
     return image
 

@@ -278,20 +278,33 @@ def _fit_inputs(target_image, geometry, shifts, weights, aberrations, *,
     return target, geometry, np.asarray(shifts), weights, aberrations
 
 
-def _adam_fit(params: list, loss_fn, steps: int, learning_rate: float) -> list:
-    """``steps`` Adam steps (optax's defaults, which are torch's: b1 0.9,
-    b2 0.999, eps 1e-8) on the real tensors ``params``; returns the loss
-    history, each value taken before its step's update as optax's loop
-    records it."""
-    opt = torch.optim.Adam(params, lr=learning_rate)
-    history: list[float] = []
+def _optimizer_steps(opt: torch.optim.Optimizer, loss_fn, steps: int) -> list:
+    """``steps`` steps of ``opt`` on the scalar ``loss_fn()``; returns the
+    losses as 0-dim tensors on their device, each taken before its step's
+    update as optax's loops record it. Nothing here waits for the device:
+    the caller reads the values back, if at all."""
+    losses = []
     for _ in range(steps):
         opt.zero_grad(set_to_none=True)
         loss = loss_fn()
         loss.backward()
         opt.step()
-        history.append(float(loss.detach()))
-    return history
+        losses.append(loss.detach())
+    return losses
+
+
+def _history(losses: list) -> list:
+    """The 0-dim loss tensors of :func:`_optimizer_steps` as floats, read
+    back at once."""
+    return torch.stack(losses).tolist() if losses else []
+
+
+def _adam_fit(params: list, loss_fn, steps: int, learning_rate: float) -> list:
+    """``steps`` Adam steps (optax's defaults, which are torch's: b1 0.9,
+    b2 0.999, eps 1e-8) on the real tensors ``params``; returns the loss
+    history (see :func:`_optimizer_steps`)."""
+    return _history(_optimizer_steps(torch.optim.Adam(params, lr=learning_rate),
+                                     loss_fn, steps))
 
 
 def fit_edge_kernel(

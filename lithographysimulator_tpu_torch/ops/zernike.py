@@ -4,8 +4,10 @@ Port of ``lithographysimulator_tpu/ops/zernike.py``: Born & Wolf radial
 polynomial R_mn, normalization N_mn = sqrt((2n+1)/(1+delta_m0)),
 cos(m*theta) for m >= 0 and sin(|m|*theta) for m < 0, zeroed outside the
 unit disk. The (count, n, n) basis depends only on the config, so it is
-built on the host in float64 and cached; the wavefront error is one
-tensordot of the coefficient vector against it.
+built on the host in float64 and cached, and its float32 (or float64)
+copy on each device is cached too: an optimizer forms the pupil every
+step. The wavefront error is one tensordot of the coefficient vector
+against it.
 """
 
 from __future__ import annotations
@@ -152,6 +154,15 @@ def wavefront_error(aberrations, config: OpticsConfig, *, device=None,
     aberrations = to_tensor(aberrations, device=device, dtype=dtype)
     if defocus_in_nm:
         aberrations = convert_defocus(aberrations, config)
-    basis = torch.as_tensor(zernike_basis(config, aberrations.shape[0]),
-                            dtype=dtype, device=aberrations.device)
+    basis = _basis_on(config, int(aberrations.shape[0]), dtype,
+                      aberrations.device)
     return torch.tensordot(aberrations, basis, dims=1)
+
+
+@functools.lru_cache(maxsize=4)
+def _basis_on(config: OpticsConfig, count: int, dtype,
+              device: torch.device) -> torch.Tensor:
+    """:func:`zernike_basis` as a ``dtype`` tensor on ``device``, uploaded
+    once per (config, count, dtype, device); callers must not write to it."""
+    return torch.tensor(_basis_cached(config, count), dtype=dtype,
+                        device=device)

@@ -262,6 +262,9 @@ def test_import_leaves_jax_out():
             "lithographysimulator_tpu_torch.ops.tiled, "
             "lithographysimulator_tpu_torch.metrology, "
             "lithographysimulator_tpu_torch.models.mrc, "
+            "lithographysimulator_tpu_torch.optimize, "
+            "lithographysimulator_tpu_torch.models.sraf, "
+            "lithographysimulator_tpu_torch.models.multipatterning, "
             "lithographysimulator_tpu_torch.utils.artifacts, "
             "lithographysimulator_tpu_torch.ops.kernels.build; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

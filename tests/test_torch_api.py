@@ -64,6 +64,12 @@ def test_every_name_of_a_ported_module_is_exported():
     assert all(hasattr(pt, name) for name in pt.__all__)
 
 
+def test_port_exports_every_name_of_the_jax_package():
+    """Every module of the JAX package's __all__ has its counterpart now:
+    the port's __all__ contains the whole of it."""
+    assert sorted(set(jt.__all__) - set(pt.__all__)) == []
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.complex64])
 @pytest.mark.parametrize("k", [300, 1500])
 def test_matmul_compensated_matches_jax(dtype, k):

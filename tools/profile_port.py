@@ -5,6 +5,7 @@ on one CUDA card, from torch.profiler. Run from the repository root:
     PYTHONPATH=. python3 tools/profile_port.py [--chunks 512] [--rank 256] [--exact-only] [--vector]
     PYTHONPATH=. python3 tools/profile_port.py --stochastic
     PYTHONPATH=. python3 tools/profile_port.py --tiled
+    PYTHONPATH=. python3 tools/profile_port.py --optimize
 
 1. 1024^2 exact Abbe (lines/spaces 64/128 px, quasar sigma 0.4/0.8, as in
    chip_smoke.py phase 4): the first ``chunks`` chunks of 4 source points
@@ -38,6 +39,21 @@ minus device time, over the tiles). It also times a rank-``rank`` 1024^2
 apply in turns with its per-call set-up (the chirp's planes and limbs and
 the resize matrices) formed afresh, as before they were cached, and
 cached.
+
+With --optimize it traces two optimizer steps instead (chip_smoke.py
+phases 31 and 34): one optimize_socs mask step at 1024^2 (uniform 0.4
+start, the exact image of the same mask and source as target, rank-64
+kernels of all 49,400 points, int8) and one opc_correct_tiled tile step
+(an interior 1024^2 tile of phase 34's 2048^2 chip, 96 px halo, rank 64).
+Each is one Adam step as the optimizers take it: the loss closure
+(optimize._socs_loss, optimize._tile_loss), its backward and the update.
+It splits the device time into the int8 forward kernels, cuBLAS (the
+float32 backward's 3M recompute and its VJP, and the spectrum's resize
+GEMMs), cuFFT and the rest (elementwise, reductions, Adam; a SOCS window
+is the whole kernel, so these steps gather nothing), and reports the host
+gap a step (untraced wall minus device time); and it times the pupil
+an exact step forms with the Zernike basis uploaded afresh, as before it
+was cached per device, and cached (in turns).
 
 Each run is traced after one untraced warm-up run and one untraced timed
 run. For each it prints the untraced and the traced wall clock (host clock
@@ -157,6 +173,9 @@ def main() -> int:
     ap.add_argument("--tiled", action="store_true",
                     help="trace an 8192^2 tiled image instead of the imaging "
                          "paths")
+    ap.add_argument("--optimize", action="store_true",
+                    help="trace an SMO mask step and a full-chip OPC tile "
+                         "step instead of the imaging paths")
     args = ap.parse_args()
 
     import torch
@@ -188,6 +207,10 @@ def main() -> int:
         return 0
     if args.tiled:
         tiled_path(torch, lt, args, cfg, spectrum, pupil, src, results)
+        print(json.dumps(results))
+        return 0
+    if args.optimize:
+        optimize_paths(torch, lt, cfg, mask, pupil, src, results)
         print(json.dumps(results))
         return 0
     for engine in ("int8", "matmul"):
@@ -343,6 +366,105 @@ def tiled_path(torch, lt, args, cfg, spectrum, pupil, src, results) -> None:
     print(f"  {n}^2 rank-{args.rank} apply, wall a call (median of 4 runs of "
           f"10, in turns): {med}; samples {times}", flush=True)
     results["apply_setup_ms"] = {"median": med, "samples": times}
+
+
+def _step_split(r: dict, steps_tag: str) -> None:
+    """Print and record the device time of one step split by layer, and
+    the host gap (untraced wall minus device time)."""
+    int8 = sum(r["by_group"].get(g, 0.0) for g in INT8)
+    parts = {"int8 forward kernels": int8,
+             "cuBLAS (backward 3M recompute and VJP, spectrum resize)":
+                 r["by_group"].get("cuBLAS GEMM", 0.0),
+             "cuFFT": r["by_group"].get("cuFFT", 0.0)}
+    parts["other (elementwise, reductions, Adam)"] = r["kernel_ms"] - sum(
+        parts.values())
+    r["split_ms"] = parts
+    r["host_gap_ms"] = r["untraced_wall_ms"] - r["kernel_ms"]
+    print(f"  {steps_tag}: device {r['kernel_ms']:.3f} ms = "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; host gap {r['host_gap_ms']:.3f} ms untraced, "
+          f"{r['wall_ms'] - r['kernel_ms']:.3f} ms traced", flush=True)
+
+
+def optimize_paths(torch, lt, cfg, mask, pupil, src, results) -> None:
+    """The --optimize traces: an optimize_socs mask step and an
+    opc_correct_tiled tile step, each as one Adam step."""
+    from lithographysimulator_tpu_torch import optimize as opt
+    from lithographysimulator_tpu_torch.ops.abbe import _pad_points, source_points
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    rank, n = 64, cfg.n
+    pts = source_points(src)
+    shifts, weights = _pad_points(pts.shifts, pts.weights, 4)
+    problem = opt.SMOProblem(config=cfg)
+    w = torch.as_tensor(weights, device="cuda")
+    with torch.no_grad():
+        target = opt.forward(opt.init_params(problem, mask.geometry),
+                             np.zeros(1, np.float32), shifts, weights, problem)
+    socs = lt.randomized_socs(pupil, opt._source_map_from_points(shifts, w, n),
+                              cfg, rank=rank)
+    latent = opt.latent_from_mask(torch.full((n, n), 0.4, device="cuda"),
+                                  problem.mask_steepness).requires_grad_()
+    adam = torch.optim.Adam([latent], lr=0.2)
+    w_sum = w.sum()
+    r = trace(torch, lambda: opt._optimizer_steps(adam, lambda: opt._socs_loss(
+        latent, problem, socs, w_sum, target), 1))
+    show(f"{n}^2 optimize_socs mask step, rank {rank}, int8", r, rank // 4)
+    _step_split(r, "a mask step")
+    results["optimize_socs_mask_step"] = r
+
+    big_n = 2 * n
+    halo = lt.default_halo(cfg)
+    tiles, step = tile_layout(big_n, n, halo)
+    chip = lt.lines_and_spaces(lt.OpticsConfig(pixel_number=big_n),
+                               line_width_px=n // 16, pitch_px=n // 8,
+                               device="cuda").geometry.clone()
+    for y in range(step, big_n, step):
+        for x in range(step, big_n, step):
+            chip[y - 20:y + 20, x - 20:x + 20] = 1.0
+    padded = torch.nn.functional.pad(chip, (halo, n, halo, n))
+    y0 = x0 = step  # tile (1, 1): the interior one
+    window = padded[y0:y0 + n, x0:x0 + n]
+    core = torch.zeros((n, n), dtype=torch.bool, device="cuda")
+    core[halo:n - halo, halo:n - halo] = True
+    resist = lt.ResistModel(threshold=0.35, steepness=30.0)
+    latent = opt.latent_from_mask(window, 4.0).requires_grad_()
+    adam = torch.optim.Adam([latent], lr=0.15)
+    r = trace(torch, lambda: opt._optimizer_steps(adam, lambda: opt._tile_loss(
+        latent, window, core, window[halo:n - halo, halo:n - halo], socs, cfg,
+        halo, 4.0, resist, None), 1))
+    show(f"opc_correct_tiled tile step, {n}^2 tile of a {big_n}^2 chip (halo "
+         f"{halo}, {tiles * tiles} tiles), rank {rank}, int8", r, rank // 4)
+    _step_split(r, "a tile step")
+    results["opc_tiled_tile_step"] = r
+
+    # the pupil every exact step forms (fit_aberrations: one a plane): the
+    # Zernike basis uploaded afresh, as before it was cached, and cached
+    from lithographysimulator_tpu_torch.ops import zernike
+
+    coeffs = torch.zeros(10, device="cuda")
+
+    def pupil_fresh():
+        zernike._basis_on.cache_clear()
+        lt.pupil_function(coeffs, cfg)
+
+    times = {"fresh basis": [], "cached basis": []}
+    lt.pupil_function(coeffs, cfg)
+    for rep in range(4):  # in turns: fresh, cached, cached, fresh
+        for tag in (("fresh basis", "cached basis") if rep % 2 == 0
+                    else ("cached basis", "fresh basis")):
+            fn = (pupil_fresh if tag.startswith("fresh")
+                  else lambda: lt.pupil_function(coeffs, cfg))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            times[tag].append(1e3 * (time.perf_counter() - t0) / 10)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"  {n}^2 pupil of 10 coefficients, wall a call (median of 4 runs "
+          f"of 10, in turns): {med}; samples {times}", flush=True)
+    results["pupil_basis_ms"] = {"median": med, "samples": times}
 
 
 if __name__ == "__main__":
