@@ -230,6 +230,39 @@ wall time, memory peak and launches, and fails if it launched no kernel:
 35. every kernel launched in phases 31-34, window_product_limbs as often
     as row_limb_gemm.
 
+Layouts in, contours out, and the HTTP server (io/*, serve.py) on the
+card; each phase prints its wall time, memory peak and launches, and fails
+if it launched a kernel where none was expected or none where some were:
+
+36. the port's rasterizer (csrc/rasterizer.cpp, g++ into _build/); phase
+    27's 8192^2 chip written as polygons through write_gds and write_oasis
+    and read back: its full raster and mask_from_layout on the card equal
+    the array phase 27 images, bit for bit, and a 1024^2 window of
+    window_provider equals _rasterize_numpy and the chip's slice, bit for
+    bit; the read and rasterize times (host);
+37. the CLI on layouts: simulate --mask-file head.gds --gds-layer 1 at
+    1024^2 (SOCS, rank 256) against the .npy path, <= 1e-6; fem --stream at
+    --big-n 4096, rank 128, the same report as the array path (CD matrix,
+    window); lele --gds at 512^2, its GDSII re-rasterized equal to the
+    decomposed masks;
+38. a worker on the card (make_server(device='cuda') in a thread): /health
+    names the card; the exact 1024^2 headline through /simulate within
+    1e-6 of a local simulate; solver socs, socs_rank 256: one cold request,
+    then a burst of 8 concurrent same-signature requests with different
+    masks, each within 1e-6 of a local simulate_batch on the same cached
+    kernels, in fewer than 8 batches; each request's latency (median, max)
+    and the burst's requests/s;
+39. jobs on the card: a tiled job at 4096^2 (1024^2 tiles, rank 64) whose
+    streamed artifact equals a local tiled_socs_image bit for bit, its
+    progress rising; a fem job with the local tiled_fem's CD matrix; a
+    running fem job cancelled; opc, stochastic, lele and film jobs at 512^2
+    tiles, each done;
+40. a router over two in-process workers on the card: same signature, same
+    worker; failover past a dead URL; a job's polls pinned to its worker;
+    its artifact relayed chunk by chunk, equal to phase 39's;
+41. every kernel launched in phases 36-40 (phase 36 none),
+    window_product_limbs as often as row_limb_gemm.
+
 Run time on one H100 is about 6 minutes, most of it phase 4's int8 run,
 phase 5's host oracle, phase 8's exact image, phases 13 and 15's exact
 images, phase 20's fits and film slabs, and phases 27-29's full chips.
@@ -251,7 +284,8 @@ is nvidia-smi's name and power limit, and the one before that lists each
 kernel with its launches, error, times and bound (launches on phases 3-5,
 socs_launches on phases 8-11, vector_launches on phases 13-16,
 m3d_launches on phases 18-20, resist_launches on phases 22-25,
-tiled_launches on phases 27-29 and optimize_launches on phases 31-34; ms,
+tiled_launches on phases 27-29, optimize_launches on phases 31-34 and
+serve_launches on phases 36-40; ms,
 library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
 and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 """
@@ -324,6 +358,12 @@ CLI_OPT_BIG_N = 512  # phase 34's opc chip and lele grid
 SMO_STEPS = 20
 TOL_SMO_LOSS = 1e-5  # the int8 history's first loss against the matmul one
 TOL_OPT_GRAD = 1e-5  # * max|g|, the int8 mask-step gradient against matmul
+SERVE_N = 1024  # phases 37-38: phase 4's headline, through the CLI and a worker
+SERVE_BIG_N = 4096  # phases 37, 39: fem --stream and the jobs' chip (25 tiles)
+JOB_RANK = 64  # phase 39's tiled, fem and 512^2-tile jobs
+JOB_TILE_N = 512  # phase 39's opc, stochastic, lele and film tiles
+JOB_BIG_N = 1024  # their chip
+TOL_LAYOUT = 1e-6  # a layout or served image against the array path's
 
 
 def log(msg: str) -> None:
@@ -2309,6 +2349,444 @@ def phase_opc_tiled_cli(torch, lt, ik, launches: dict) -> None:
     _phase_end(torch, ik, 34, t0, launches, True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 36-41: layouts in, contours out, and the HTTP server on the card
+# ---------------------------------------------------------------------------
+
+
+def _rect(c0, r0, c1, r1, px: float) -> np.ndarray:
+    """Pixels [r0, r1) x [c0, c1) as a rectangle in nm: pixel (r, c) spans
+    x in [c px, (c+1) px], y in [r px, (r+1) px], so a centre-sampled
+    raster at origin (0, 0) reproduces them exactly."""
+    return np.array([[c0 * px, r0 * px], [c1 * px, r0 * px],
+                     [c1 * px, r1 * px], [c0 * px, r1 * px]], np.float64)
+
+
+def _chip_polygons(lt, big_n: int, n: int, step: int) -> list:
+    """_chip_layout's chip as polygons (nm): its lines as full-height
+    rectangles and its contacts as 40 px squares, on layer 1, plus a decoy
+    on layer 2 that a --gds-layer 1 read must drop."""
+    px = lt.OpticsConfig(pixel_number=big_n).pixel_size
+    row = lt.lines_and_spaces(lt.OpticsConfig(pixel_number=big_n),
+                              line_width_px=n // 16, pitch_px=n // 8,
+                              device="cpu").geometry[0].numpy()
+    edges = np.flatnonzero(np.diff(np.r_[0.0, row, 0.0]))
+    polys = [(1, _rect(c0, 0, c1, big_n, px))
+             for c0, c1 in zip(edges[::2], edges[1::2])]
+    polys += [(1, _rect(c - 20, r - 20, c + 20, r + 20, px))
+              for r in range(step, big_n, step) for c in range(step, big_n, step)]
+    return polys + [(2, _rect(0, 0, big_n // 2, big_n // 2, px))]
+
+
+def phase_rasterizer(torch, lt, ik, launches: dict) -> None:
+    """Phase 36: the port's C++ rasterizer (g++ into _build/), phase 27's
+    chip written as GDSII and OASIS and read back, rasterized whole and as
+    one tile window."""
+    import tempfile
+
+    from lithographysimulator_tpu_torch.io import gdsii, layout, native, oasis
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    t0 = _phase_start(torch, ik)
+    lib, t_build = _timed(torch, native.build)
+    log(f"[phase 36] rasterizer built with g++ in {t_build:.2f} s: "
+        f"{lib.relative_to(REPO)}")
+    cfg = lt.OpticsConfig(pixel_number=TILE_N)
+    halo = lt.default_halo(cfg)
+    tiles, step = tile_layout(TILED_BIG_N, TILE_N, halo)
+    big_cfg = lt.OpticsConfig(pixel_number=TILED_BIG_N)
+    chip = _chip_layout(lt, torch, TILED_BIG_N, TILE_N, step)
+    polys = _chip_polygons(lt, TILED_BIG_N, TILE_N, step)
+    px = big_cfg.pixel_size
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt, write, read in (("gds", gdsii.write_gds, gdsii.read_gds),
+                                 ("oas", oasis.write_oasis, oasis.read_oasis)):
+            path = f"{tmp}/chip.{fmt}"
+            write(path, {"CHIP": polys})
+            t1 = time.perf_counter()
+            layer1 = [p.xy_nm for p in read(path).flatten() if p.layer == 1]
+            t_read = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            raster = native.rasterize(layer1, pixel_size=px, n=TILED_BIG_N)
+            t_raster = time.perf_counter() - t1
+            mask = layout.mask_from_layout(path, big_cfg, layer=1,
+                                           origin=(0.0, 0.0), device=DEVICE)
+            same = bool(torch.equal(mask.geometry, chip))
+            log(f"  {fmt}: {Path(path).stat().st_size} bytes, {len(layer1)} "
+                f"polygons on layer 1; read {1e3 * t_read:.2f} ms, rasterize "
+                f"{TILED_BIG_N}^2 {1e3 * t_raster:.2f} ms (host); "
+                f"mask_from_layout equals phase 27's chip bit for bit: {same}")
+            if not (same and np.array_equal(raster, chip.cpu().numpy())):
+                raise AssertionError(f"{fmt}: the layout raster differs from "
+                                     "phase 27's chip")
+        window_fn = layout.window_provider(layer1, cfg, TILED_BIG_N,
+                                           origin=(0.0, 0.0))
+        row0, col0 = step - halo, 2 * step - halo
+        t1 = time.perf_counter()
+        window = window_fn(row0, col0)
+        t_window = time.perf_counter() - t1
+        x_lo, y_lo = col0 * px, row0 * px
+        hit = [p for p in layer1
+               if p[:, 0].min() < x_lo + TILE_N * px and p[:, 0].max() > x_lo
+               and p[:, 1].min() < y_lo + TILE_N * px and p[:, 1].max() > y_lo]
+        t1 = time.perf_counter()
+        plain = native._rasterize_numpy(hit, (x_lo, y_lo), px, TILE_N, 0)
+        t_plain = time.perf_counter() - t1
+        log(f"  {TILE_N}^2 window at ({row0}, {col0}): library {1e3 * t_window:.2f} "
+            f"ms, plain numpy {1e3 * t_plain:.2f} ms ({len(hit)} polygons)")
+        if not (np.array_equal(window, plain) and np.array_equal(
+                window, _window(chip.cpu().numpy(), row0, col0, TILE_N))):
+            raise AssertionError("the streamed window differs from "
+                                 "_rasterize_numpy or from the chip's slice")
+        log("  window equals _rasterize_numpy and the chip's slice, bit for bit")
+    _phase_end(torch, ik, 36, t0, launches, False)
+
+
+def phase_layout_cli(torch, lt, ik, launches: dict) -> None:
+    """Phase 37: simulate --mask-file chip.gds, fem --stream, lele --gds."""
+    import tempfile
+
+    from lithographysimulator_tpu_torch import cli
+    from lithographysimulator_tpu_torch.io.contours import rasterize_loops
+    from lithographysimulator_tpu_torch.io.gdsii import read_gds, write_gds
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    t0 = _phase_start(torch, ik)
+    n = SERVE_N
+    cfg, mask, _ = _headline_setup(lt, n)
+    step = tile_layout(SERVE_BIG_N, TILE_N, lt.default_halo(
+        lt.OpticsConfig(pixel_number=TILE_N)))[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase 4's lines as GDSII on layer 1; the decoy on layer 2
+        write_gds(f"{tmp}/head.gds", {"TOP": _chip_polygons(lt, n, n, 2 * n)})
+        np.save(f"{tmp}/head.npy", mask.geometry.cpu().numpy())
+        base = ["simulate", "--device", DEVICE, "--pixel-number", str(n),
+                "--solver", "socs", "--socs-rank", str(SOCS_RANK)]
+        images = {}
+        for tag, extra in (("gds", ["--mask-file", f"{tmp}/head.gds",
+                                    "--gds-layer", "1"]),
+                           ("npy", ["--mask-file", f"{tmp}/head.npy"])):
+            report, t = _timed(torch, lambda: _cli_report(
+                cli, base + extra + ["--out", f"{tmp}/{tag}_image.npy"]))
+            images[tag] = np.load(f"{tmp}/{tag}_image.npy")
+            log(f"[phase 37] simulate --mask-file head.{tag} ({t:.3f} s, "
+                f"rank {report['socs_rank']}, wall {report['wall_clock_s']:.3f} s)")
+        check("simulate: .gds mask file vs .npy (nrms)",
+              nrms(images["gds"], images["npy"]), TOL_LAYOUT)
+        write_gds(f"{tmp}/chip.gds", {"CHIP": _chip_polygons(
+            lt, SERVE_BIG_N, TILE_N, step)})
+        fem = ["fem", "--device", DEVICE, "--pixel-number", str(TILE_N),
+               "--big-n", str(SERVE_BIG_N), "--mask-file", f"{tmp}/chip.gds",
+               "--gds-layer", "1", "--rank", str(FEM_RANK)]
+        stream, t_stream = _timed(torch, lambda: _cli_report(cli, fem + ["--stream"]))
+        whole, t_whole = _timed(torch, lambda: _cli_report(cli, fem))
+        log(f"  fem --stream at --big-n {SERVE_BIG_N}: {t_stream:.3f} s "
+            f"(report {stream['wall_clock_s']} s); the array path "
+            f"{t_whole:.3f} s (report {whole['wall_clock_s']} s); CD matrix "
+            f"{stream['cd_nm']}")
+        for r in (stream, whole):
+            r.pop("wall_clock_s")
+        whole.pop("epe", None)  # only the array path holds the target
+        if stream["cd_nm"] != whole["cd_nm"] or stream != whole:
+            raise AssertionError("fem --stream differs from the array path")
+        log("  fem --stream report equals the array path's (CD matrix, window)")
+        m = CLI_OPT_BIG_N
+        report, t = _timed(torch, lambda: _cli_report(cli, [
+            "lele", "--device", DEVICE, "--pixel-number", str(m), "--mask",
+            "lines", "--source", "classical", "--sigma-out", "0.3",
+            "--min-pitch", "200", "--out", f"{tmp}/lele.npz",
+            "--gds", f"{tmp}/lele.gds"]))
+        masks = np.load(f"{tmp}/lele.npz")
+        polys = read_gds(f"{tmp}/lele.gds").flatten("LELE")
+        for layer, key in ((1, "mask_a"), (2, "mask_b")):
+            loops = [p.xy_nm for p in polys if p.layer == layer]
+            back = rasterize_loops(loops, pixel_size=cfg.pixel_size, n=m)
+            if not np.array_equal(back > 0.5, masks[key] > 0.5):
+                raise AssertionError(f"lele --gds layer {layer} does not "
+                                     f"re-rasterize to {key}")
+        log(f"  lele --gds at {m}^2 ({t:.3f} s): {len(polys)} loops; layers 1 "
+            "and 2 re-rasterize to mask_a and mask_b")
+    _phase_end(torch, ik, 37, t0, launches, True)
+
+
+def _http(url: str, body=None, timeout: float = 600.0):
+    """(status, JSON payload) of a GET (``body`` None) or a JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None
+                                 else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def _start_server(srv) -> str:
+    import threading
+
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _poll(url: str, job_id: str, timeout: float = 600.0, every: float = 0.02):
+    """A job's final status and the progress fractions seen on the way."""
+    seen = []
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        status, payload = _http(f"{url}/jobs/{job_id}")
+        if status != 200:
+            raise AssertionError(f"job {job_id}: {status} {payload}")
+        seen.append(payload["progress"])
+        if payload["status"] in ("done", "error", "cancelled"):
+            return payload, seen
+        time.sleep(every)
+    raise AssertionError(f"job {job_id} did not finish in {timeout} s")
+
+
+def _wire_s(serve, body: dict, image: np.ndarray | None = None) -> float:
+    """Host seconds to move one request over the wire format: its body
+    encoded to JSON and parsed back with its mask decoded, and, for a
+    /simulate response, its ``image`` encoded and decoded the same way (a
+    job's large result streams raw instead); median of 3."""
+    def once():
+        t1 = time.perf_counter()
+        blob = json.dumps(body).encode()
+        serve._decode_array(json.loads(blob)["mask"])
+        if image is not None:
+            out = json.dumps({"image": serve._encode_array(image)}).encode()
+            serve._decode_array(json.loads(out)["image"])
+        return time.perf_counter() - t1
+
+    return float(np.median([once() for _ in range(3)]))
+
+
+def _quasar_spec() -> dict:
+    return {"kind": "quasar", "sigma_in": 0.4, "sigma_out": 0.8, "poles": 4,
+            "rotation": -np.pi / 8}
+
+
+def phase_worker(torch, lt, ik, launches: dict, serve) -> tuple:
+    """Phase 38: a worker on the card: /health, the exact headline, and
+    SOCS requests (cold, then a burst of 8). Returns (server, url)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = _phase_start(torch, ik)
+    srv = serve.make_server("127.0.0.1", 0, device=DEVICE)
+    url = _start_server(srv)
+    _, health = _http(f"{url}/health")
+    log(f"[phase 38] worker at {url}: /health {json.dumps(health)}")
+    if health["device"] != torch.cuda.get_device_name(0) or health["platform"] != "gpu":
+        raise AssertionError(f"/health does not name the card: {health}")
+    n = SERVE_N
+    cfg, mask, src = _headline_setup(lt, n)
+    mask_np = mask.geometry.cpu().numpy()
+    body = {"pixel_number": n, "mask": serve._encode_array(mask_np),
+            "source": _quasar_spec()}
+    (status, payload), t_req = _timed(torch, lambda: _http(f"{url}/simulate", body))
+    if status != 200:
+        raise AssertionError(f"/simulate: {status} {payload}")
+    local, t_local = _timed(torch, lambda: lt.simulate(mask, src, device=DEVICE))
+    log(f"  exact /simulate at {n}^2 ({payload['report']['source_points']} "
+        f"points): request {t_req:.3f} s (server wall "
+        f"{payload['report']['wall_clock_s']} s), local simulate {t_local:.3f} s")
+    check("exact /simulate vs local simulate (nrms)",
+          nrms(serve._decode_array(payload["image"]), check_image(local.image, n)),
+          TOL_LAYOUT)
+    socs = dict(body, solver="socs", socs_rank=SOCS_RANK)
+    psim = importlib.import_module("lithographysimulator_tpu_torch.simulate")
+    with psim._SOCS_BUILD_CACHE_LOCK:  # phase 37 cached this setup's kernels
+        psim._SOCS_BUILD_CACHE.clear()
+    (status, payload), t_cold = _timed(torch, lambda: _http(f"{url}/simulate", socs))
+    if status != 200:
+        raise AssertionError(f"/simulate socs: {status} {payload}")
+    log(f"  SOCS /simulate, rank {SOCS_RANK}, cold (build + apply): {t_cold:.3f} s")
+    masks = [np.roll(mask_np, 16 * i, axis=1) for i in range(8)]
+    for i, m in enumerate(masks):
+        m[64 * i:64 * i + 40, 100:140] = 1.0  # a distinct contact each
+    _, before = _http(f"{url}/health")
+
+    def one(m):
+        t1 = time.perf_counter()
+        out = _http(f"{url}/simulate", dict(socs, mask=serve._encode_array(m)))
+        return out, time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        results = list(pool.map(one, masks))
+    t_burst = time.perf_counter() - t1
+    _, after = _http(f"{url}/health")
+    batches = after["batches_run"] - before["batches_run"]
+    lat = np.array([t for _, t in results])
+    log(f"  burst of 8 same-signature SOCS requests: {t_burst:.3f} s, "
+        f"{8 / t_burst:.2f} requests/s; latency median {np.median(lat):.3f} s, "
+        f"max {lat.max():.3f} s; {batches} batch(es), "
+        f"{after['batched_requests'] - before['batched_requests']} batched requests")
+    ref, t_ref = _timed(torch, lambda: lt.simulate_batch(
+        np.stack(masks), cfg, src, device=DEVICE, solver="socs",
+        socs_rank=SOCS_RANK).cpu().numpy())
+    t_wire = _wire_s(serve, dict(socs, mask=serve._encode_array(masks[0])),
+                     ref[0])
+    log(f"  the burst's 8 images by a local simulate_batch on the cached "
+        f"kernels, read back: {t_ref:.3f} s; one request's wire work on the "
+        f"host (the body's JSON and base64 both ways, the image's too): "
+        f"{1e3 * t_wire:.1f} ms")
+    worst = 0.0
+    for ((status, payload), _), r in zip(results, ref):
+        if status != 200:
+            raise AssertionError(f"burst request: {status} {payload}")
+        worst = max(worst, nrms(serve._decode_array(payload["image"]), r))
+    check("burst responses vs local simulate_batch on the cached kernels "
+          "(worst nrms)", worst, TOL_LAYOUT)
+    if not batches < 8:
+        raise AssertionError(f"the burst ran {batches} batches: none coalesced")
+    log(f"  /health after: socs_cache_entries {after['socs_cache_entries']}, "
+        f"socs_cache_bytes {after['socs_cache_bytes']}")
+    _phase_end(torch, ik, 38, t0, launches, True)
+    return srv, url
+
+
+def phase_jobs(torch, lt, ik, launches: dict, serve, url: str) -> tuple:
+    """Phase 39: tiled, fem (and a cancel), opc, stochastic, lele and film
+    jobs. Returns the tiled job's body and artifact for phase 40."""
+    from lithographysimulator_tpu_torch.models.resist import ResistModel
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+    from lithographysimulator_tpu_torch.simulate import _socs_kernels_cached
+
+    t0 = _phase_start(torch, ik)
+    cfg, _, src = _headline_setup(lt, TILE_N)
+    tiles, step = tile_layout(SERVE_BIG_N, TILE_N, lt.default_halo(cfg))
+    chip = _chip_layout(lt, torch, SERVE_BIG_N, TILE_N, step)
+    chip_b64 = serve._encode_array(chip.cpu().numpy())
+    tiled = {"kind": "tiled", "mask": chip_b64, "pixel_number": TILE_N,
+             "rank": JOB_RANK, "source": _quasar_spec(),
+             "tiles_per_dispatch": 4}
+    t1 = time.perf_counter()
+    _, sub = _http(f"{url}/jobs", tiled)
+    final, seen = _poll(url, sub["job_id"])
+    t_job = time.perf_counter() - t1
+    if final["status"] != "done":
+        raise AssertionError(f"tiled job: {final}")
+    t1 = time.perf_counter()
+    artifact = serve.fetch_artifact(url, final["image"]["stream_path"])
+    t_fetch = time.perf_counter() - t1
+    socs = _socs_kernels_cached(cfg, src, np.zeros(1, np.float32), JOB_RANK,
+                                device=DEVICE)[0]
+    local, t_local = _timed(torch, lambda: lt.tiled_socs_image(
+        chip, socs, cfg, tiles_per_dispatch=4))
+    rising = all(b >= a for a, b in zip(seen, seen[1:])) and seen[-1] == 1.0
+    t_wire = _wire_s(serve, tiled)
+    log(f"[phase 39] tiled job, {SERVE_BIG_N}^2 through {tiles * tiles} tiles "
+        f"of {TILE_N}^2, rank {JOB_RANK}: submit to done {t_job:.3f} s, "
+        f"artifact ({final['image']['nbytes']} bytes) fetched in {t_fetch:.3f} s; "
+        f"local tiled_socs_image {t_local:.3f} s; the body's JSON and "
+        f"base64 both ways on the host {t_wire:.3f} s; progress seen "
+        f"{sorted(set(seen))}")
+    if not (np.array_equal(artifact, local.cpu().numpy()) and rising
+            and len(set(seen)) > 1):
+        raise AssertionError("tiled job: artifact differs from the local "
+                             "image, or progress did not rise")
+    log("  streamed artifact equals local tiled_socs_image bit for bit; "
+        "progress rose to 1")
+    fem = {"kind": "fem", "mask": chip_b64, "pixel_number": TILE_N,
+           "rank": JOB_RANK, "source": _quasar_spec(),
+           "defocus_nm": [-60.0, 0.0, 60.0], "doses": [0.9, 1.0, 1.1],
+           "threshold": 0.3}
+    (final, _), t_job = _timed(torch, lambda: _poll(
+        url, _http(f"{url}/jobs", fem)[1]["job_id"]))
+    ref, t_local = _timed(torch, lambda: lt.tiled_fem(
+        chip, cfg, src, defocus_nm=fem["defocus_nm"], doses=fem["doses"],
+        resist=ResistModel(threshold=0.3), rank=JOB_RANK, device=DEVICE))
+    log(f"  fem job: {t_job:.3f} s (local tiled_fem {t_local:.3f} s); CD "
+        f"matrix {final.get('cd_nm')}")
+    if final["status"] != "done" or not np.array_equal(
+            np.asarray(final["cd_nm"], float), np.asarray(ref["cd_nm"], float),
+            equal_nan=True):
+        raise AssertionError(f"fem job differs from the local tiled_fem: {final}")
+    long_fem = dict(fem, defocus_nm=np.linspace(-100, 100, 9).tolist())
+    _, sub = _http(f"{url}/jobs", long_fem)
+    while _http(f"{url}/jobs/{sub['job_id']}")[1]["status"] == "queued":
+        time.sleep(0.01)
+    status, cancel = _http(f"{url}/jobs/{sub['job_id']}/cancel", {})
+    final, _ = _poll(url, sub["job_id"])
+    log(f"  cancel a running fem job: {status} {cancel['status']} -> "
+        f"{final['status']} at progress {final['progress']}")
+    if final["status"] != "cancelled":
+        raise AssertionError(f"the cancelled fem job ended {final['status']}")
+    small = lt.lines_and_spaces(lt.OpticsConfig(pixel_number=JOB_BIG_N),
+                                line_width_px=JOB_TILE_N // 16,
+                                pitch_px=JOB_TILE_N // 8, device="cpu")
+    common = {"mask": serve._encode_array(small.geometry.numpy()),
+              "pixel_number": JOB_TILE_N, "rank": JOB_RANK,
+              "source": _quasar_spec()}
+    for kind, extra in (("opc", {"steps": 3}),
+                        ("stochastic", {"trials": 8}),
+                        ("lele", {"min_pitch_nm": 200.0}),
+                        ("film", {"nz": 4})):
+        (final, _), t = _timed(torch, lambda: _poll(
+            url, _http(f"{url}/jobs", dict(common, kind=kind, **extra))[1]["job_id"]))
+        log(f"  {kind} job, {JOB_BIG_N}^2 through {JOB_TILE_N}^2 tiles: "
+            f"{final['status']} in {t:.3f} s")
+        if final["status"] != "done":
+            raise AssertionError(f"{kind} job: {final}")
+    _phase_end(torch, ik, 39, t0, launches, True)
+    return tiled, artifact
+
+
+def phase_router(torch, lt, ik, launches: dict, serve, srv, url: str,
+                 tiled: dict, artifact: np.ndarray) -> None:
+    """Phase 40: a router over two in-process workers on the card."""
+    t0 = _phase_start(torch, ik)
+    srv2 = serve.make_server("127.0.0.1", 0, device=DEVICE)
+    url2 = _start_server(srv2)
+    router = serve.make_router([url, url2], "127.0.0.1", 0)
+    rurl = _start_server(router)
+    dead = serve.make_router(["http://127.0.0.1:9", url], "127.0.0.1", 0)
+    durl = _start_server(dead)
+    try:
+        n = SERVE_N
+        _, mask, _ = _headline_setup(lt, n)
+        body = {"pixel_number": n, "source": _quasar_spec(), "solver": "socs",
+                "socs_rank": SOCS_RANK,
+                "mask": serve._encode_array(mask.geometry.cpu().numpy())}
+        before = [s.service.requests_served for s in (srv, srv2)]
+        for _ in range(3):
+            status, _ = _http(f"{rurl}/simulate", body)
+            if status != 200:
+                raise AssertionError(f"router /simulate: {status}")
+        served = [s.service.requests_served - b
+                  for s, b in zip((srv, srv2), before)]
+        log(f"[phase 40] router over 2 workers: 3 same-signature requests "
+            f"served {served} (affinity)")
+        if sorted(served) != [0, 3]:
+            raise AssertionError(f"affinity broken: {served}")
+        for _ in range(2):
+            status, _ = _http(f"{durl}/simulate", body)
+            if status != 200:
+                raise AssertionError(f"failover past a dead URL: {status}")
+        log("  failover past a dead backend URL: 2 requests, 200 each")
+        _, sub = _http(f"{rurl}/jobs", tiled)
+        final, _ = _poll(rurl, sub["job_id"])
+        if final["status"] != "done":
+            raise AssertionError(f"job through the router: {final}")
+        t1 = time.perf_counter()
+        relayed = serve.fetch_artifact(rurl, final["image"]["stream_path"])
+        t_fetch = time.perf_counter() - t1
+        log(f"  tiled job through the router, polls pinned to its worker: "
+            f"done; artifact relayed chunk by chunk in {t_fetch:.3f} s")
+        if not np.array_equal(relayed, artifact):
+            raise AssertionError("the relayed artifact differs from phase 39's")
+        log("  relayed artifact equals phase 39's bit for bit")
+    finally:
+        for s in (dead, router, srv2):
+            s.shutdown()
+            s.server_close()
+    _phase_end(torch, ik, 40, t0, launches, True)
+
+
 def _fits_launched(fit_launches) -> None:
     """Phase 21's check of the fits alone: each int8 fit launched every
     kernel, one window_product_limbs a row_limb_gemm (no matmul fallback)."""
@@ -2433,6 +2911,28 @@ def main() -> int:
                              f"or window_product_limbs != row_limb_gemm: "
                              f"{optimize_launches}")
 
+    from lithographysimulator_tpu_torch import serve
+
+    serve_launches = {}  # phases 36-40, each counted and checked apart
+    phase_rasterizer(torch, lt, ik, serve_launches)
+    phase_layout_cli(torch, lt, ik, serve_launches)
+    srv, url = phase_worker(torch, lt, ik, serve_launches, serve)
+    try:
+        tiled, artifact = phase_jobs(torch, lt, ik, serve_launches, serve, url)
+        phase_router(torch, lt, ik, serve_launches, serve, srv, url, tiled,
+                     artifact)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    log("[phase 41]")
+    log(f"  launches in phases 36-40: {serve_launches}")
+    missing = [k for k in KERNELS if serve_launches.get(k, 0) <= 0]
+    if missing or (serve_launches["window_product_limbs"]
+                   != serve_launches["row_limb_gemm"]):
+        raise AssertionError(f"phases 36-40: kernels never launched {missing}, "
+                             f"or window_product_limbs != row_limb_gemm: "
+                             f"{serve_launches}")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
          "launches": launches[k], **stats[k],
@@ -2442,7 +2942,8 @@ def main() -> int:
          "m3d_launches": m3d_launches[k],
          "resist_launches": resist_launches[k],
          "tiled_launches": tiled_launches[k],
-         "optimize_launches": optimize_launches[k]}
+         "optimize_launches": optimize_launches[k],
+         "serve_launches": serve_launches[k]}
         for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

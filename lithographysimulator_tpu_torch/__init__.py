@@ -15,7 +15,10 @@ process-window OPC: :mod:`.optimize`), assist features and multiple
 patterning, on a CUDA device through hand-written int8 limb kernels
 (``csrc/intensity_int8.cu``, differentiable: the backward recomputes in
 float32) or on the CPU through their plain PyTorch versions. Every entry
-point takes an explicit ``device``.
+point takes an explicit ``device``. Layouts come in and contours go out
+through :mod:`.io` (GDSII, OASIS, a C++ rasterizer on the host);
+:mod:`.serve` is the HTTP worker (cross-request batching, full-chip jobs)
+and router.
 
 Importing the package turns TF32 off for float32 matmuls and cuDNN: TF32
 keeps ~3 decimal digits, far below the fp32 accuracy class the engines

@@ -1,13 +1,15 @@
-"""Command-line interface of the port: the ``simulate``, ``socs``,
-``m3dcal``, ``focus``, ``resist3d``, ``stochastic``, ``calibrate``,
-``fem``, ``smo``, ``opc``, ``fitaberr`` and ``lele`` subcommands.
+"""Command-line interface of the port: the ``simulate``, ``demo``,
+``socs``, ``m3dcal``, ``focus``, ``resist3d``, ``stochastic``,
+``calibrate``, ``fem``, ``smo``, ``opc``, ``fitaberr`` and ``lele``
+subcommands. The HTTP worker and router start from
+``python -m lithographysimulator_tpu_torch.serve``.
 
 Same flags and JSON report keys as ``python -m lithographysimulator_tpu``'s
-subcommands of those names for the masks, sources, solvers and options this
-port has, plus ``--device`` (default ``cuda``) and, for ``simulate``,
-``--socs-rank``. ``--mask-file`` takes ``.npy`` arrays, and ``fem
---stream`` and ``lele --gds`` are refused (they need ``io/layout.py`` and
-``io/contours.py`` with ``io/gdsii.py``, not ported yet):
+subcommands of those names, plus ``--device`` (default ``cuda``) and, for
+``simulate``, ``--socs-rank``. ``--mask-file`` takes a GDSII layout
+(``.gds``/``.gdsii``, an OASIS file under those suffixes too) with
+``--gds-layer``, or a ``.npy`` array; ``fem --stream`` reads the tile
+windows from the layout and ``lele --gds`` writes the masks' contours:
 
     python -m lithographysimulator_tpu_torch simulate --device cuda \
         --pixel-number 512 --source quasar --sigma-in 0.4 --sigma-out 0.8 \
@@ -40,7 +42,10 @@ port has, plus ``--device`` (default ``cuda``) and, for ``simulate``,
         --defocus -60 0 60 --steps 100
     python -m lithographysimulator_tpu_torch lele --device cuda \
         --pixel-number 512 --mask lines --source classical --sigma-out 0.3 \
-        --min-pitch 200 --rank 48
+        --min-pitch 200 --rank 48 --gds lele.gds
+    python -m lithographysimulator_tpu_torch fem --device cuda \
+        --pixel-number 1024 --big-n 8192 --mask-file chip.gds --gds-layer 1 \
+        --stream
 """
 
 from __future__ import annotations
@@ -89,10 +94,11 @@ def _build_mask(args, config):
 
     device = args.device
     if args.mask_file:
-        if not str(args.mask_file).lower().endswith(".npy"):
-            raise SystemExit("--mask-file takes a .npy array: GDSII/OASIS "
-                             "import needs io/layout.py, which this port "
-                             "does not have yet")
+        if str(args.mask_file).lower().endswith((".gds", ".gdsii")):
+            from .io.layout import mask_from_gds
+
+            return mask_from_gds(args.mask_file, config, layer=args.gds_layer,
+                                 device=device)
         return mask_mod.from_array(np.load(args.mask_file), config,
                                    device=device)
     n = config.n
@@ -180,6 +186,61 @@ def cmd_simulate(args) -> int:
         Path(str(out.with_suffix("")) + ".report.json").write_text(
             json.dumps(result.report, indent=2, default=repr))
         print(f"wrote {args.out}")
+    if args.plot:
+        _plot_pipeline(result, mask, args.plot)
+        print(f"wrote {args.plot}")
+    return 0
+
+
+def _plot_pipeline(result, mask, out_path: str) -> None:
+    """The six-panel figure of a run: image, spectrum, mask, source and the
+    pupil's real and imaginary parts (needs matplotlib)."""
+    plt = _pyplot()
+    fig, axes = plt.subplots(3, 2, dpi=200, figsize=(8, 10))
+    panels = [
+        (result.image.cpu().numpy(), "Simulated Aerial Image"),
+        (result.spectrum.abs().cpu().numpy(), "Diffraction Pattern (Mag)"),
+        (mask.geometry.abs().cpu().numpy(), "Mask"),
+        (result.source_map, "Light Source"),
+        (result.pupil.real.cpu().numpy(), "Pupil Function (Re)"),
+        (result.pupil.imag.cpu().numpy(), "Pupil Function (Im)"),
+    ]
+    for ax, (img, title) in zip(axes.ravel(), panels):
+        ax.imshow(img)
+        ax.set_title(title)
+    fig.tight_layout()
+    fig.savefig(out_path)
+    plt.close(fig)
+
+
+def cmd_demo(args) -> int:
+    """The reference's end-to-end demo on --device: the demo mask, a
+    quadrupole 0.4/0.8, 10 OSA terms with 100 nm defocus, and the
+    six-panel figure (which needs matplotlib)."""
+    from .models.mask import demo_bars
+    from .models.source import LightSource
+    from .simulate import simulate
+    from .utils.profiling import device_info
+
+    config = _build_config(args)
+    aberr = (_aberrations(args)
+             or [0, 0, 0.01, 0, 100, 0.01, 0, 0.01, 0.01, 0.01])
+    mask = demo_bars(config, device=args.device)
+    source = LightSource(config, sigma_in=args.sigma_in,
+                         sigma_out=args.sigma_out).quasar(args.poles,
+                                                          args.rotation)
+    info = device_info(args.device)
+    print(f"Using {info['platform']} {info['device']} "
+          f"({info['device_count']} device(s))")
+    print("Beginning simulation")
+    result = simulate(mask, source, aberr, device=args.device,
+                      solver=args.solver)
+    print(f"Aerial image computed in {result.report['wall_clock_s']:.3f} s "
+          f"({result.report['source_points']} source points, "
+          f"solver={result.report['solver']})")
+    out = args.out or "demo.png"
+    _plot_pipeline(result, mask, out)
+    print(f"wrote {out}")
     return 0
 
 
@@ -475,7 +536,7 @@ def _pyplot():
     try:
         import matplotlib
     except ImportError:
-        raise SystemExit("--plot needs matplotlib, which is not "
+        raise SystemExit("the figure needs matplotlib, which is not "
                          "installed") from None
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -594,14 +655,19 @@ def cmd_fem(args) -> int:
     from .metrology import tiled_fem
     from .models.resist import ResistModel
 
-    if args.stream:
-        raise SystemExit("fem --stream reads tile windows from a GDSII/OASIS "
-                         "layout, which needs io/layout.py; this port does "
-                         "not have it yet")
     tile_config = _build_config(args)  # optics of each tile
     big_n = args.big_n or tile_config.n
-    big_cfg = dataclasses.replace(tile_config, pixel_number=big_n)
-    mask_big = _build_mask(args, big_cfg).geometry.abs()
+    window_fn = mask_big = None
+    if args.stream:
+        if not args.mask_file:
+            raise SystemExit("--stream requires --mask-file (GDSII/OASIS)")
+        from .io.layout import layout_window_provider
+
+        window_fn = layout_window_provider(args.mask_file, tile_config,
+                                           big_n, layer=args.gds_layer)
+    else:
+        big_cfg = dataclasses.replace(tile_config, pixel_number=big_n)
+        mask_big = _build_mask(args, big_cfg).geometry.abs()
     source = _build_source(args, tile_config)
     defocus = np.linspace(args.focus_min, args.focus_max, args.focus_steps)
     t0 = time.perf_counter()
@@ -614,11 +680,12 @@ def cmd_fem(args) -> int:
         base_aberrations=_aberrations(args),
         rank=args.rank, halo=args.halo,
         tiles_per_dispatch=args.tiles_per_dispatch,
+        window_fn=window_fn, big_n=big_n if window_fn is not None else None,
         polarization=_polarization(args), chromatic=_build_chromatic(args),
         warm_start=not args.no_warm_start,
         hotspot_nils=args.hotspot_nils,
         pv_bands=args.pv_bands is not None,
-        mask3d=_build_mask3d(args),
+        mask3d=_build_mask3d(args), device=args.device,
     )
     elapsed = time.perf_counter() - t0
     report = {
@@ -830,16 +897,11 @@ def cmd_fitaberr(args) -> int:
 def cmd_lele(args) -> int:
     """Multiple patterning on --device: decompose the layout into --masks
     masks (2 = LELE, 3 = LELELE, ...), print each and the single exposure
-    through the tiled SOCS path, report feature recovery. --gds is
-    refused: writing the masks as GDSII needs io/contours.py and
-    io/gdsii.py, which this port does not have yet."""
+    through the tiled SOCS path, report feature recovery; --gds writes
+    the masks' contours as one GDSII cell, mask i on layer i."""
     from .models.multipatterning import multipatterning_print
     from .models.resist import ResistModel, feature_table
 
-    if args.gds:
-        raise SystemExit("lele --gds writes the masks through io/contours.py "
-                         "and io/gdsii.py, which this port does not have "
-                         "yet (ROADMAP.md Queue 1, the host modules)")
     config = _build_config(args)
     mask = _build_mask(args, config).geometry.abs()
     source = _build_source(args, config)
@@ -879,6 +941,18 @@ def cmd_lele(args) -> int:
                  **{f"mask_{chr(ord('a') + i)}": m
                     for i, m in enumerate(out["masks"])})
         print(f"wrote {args.out}")
+    if args.gds:
+        from .io.contours import trace_contours
+        from .io.gdsii import write_gds
+
+        px = config.pixel_size
+        cells = {"LELE": [
+            (layer, xy)
+            for layer, m in enumerate(out["masks"], start=1)
+            for xy in trace_contours(m, pixel_size=px)
+        ]}
+        write_gds(args.gds, cells, unit_nm=1.0)
+        print(f"wrote {args.gds} (mask i on layer i, {args.masks} masks)")
     return 0
 
 
@@ -909,7 +983,10 @@ def _add_scene(p) -> None:
     _add_optics(p)
     p.add_argument("--mask", default="demo", choices=["demo", "lines", "contacts"])
     p.add_argument("--mask-file", default=None,
-                   help=".npy array for the mask (overrides --mask)")
+                   help=".npy array or .gds layout for the mask (overrides "
+                        "--mask)")
+    p.add_argument("--gds-layer", type=int, default=None,
+                   help="layer to keep when --mask-file is GDSII")
     p.add_argument("--source", default="quasar",
                    choices=["annular", "classical", "quasar", "dipole", "monopole"])
     p.add_argument("--sigma-in", type=float, default=0.4)
@@ -1179,8 +1256,8 @@ def _add_fem(sub) -> None:
                         "(.npy, or an image extension, which needs "
                         "matplotlib)")
     p.add_argument("--stream", action="store_true",
-                   help="stream tile windows from a GDSII/OASIS "
-                        "--mask-file: needs io/layout.py, refused")
+                   help="stream tile windows straight from --mask-file "
+                        "(no full-chip raster; any layout size)")
     p.set_defaults(func=cmd_fem)
 
 
@@ -1261,8 +1338,8 @@ def _add_lele(sub) -> None:
     p.add_argument("--out", default=None,
                    help=".npz path for masks + profiles")
     p.add_argument("--gds", default=None,
-                   help="write the decomposed masks as a GDS cell: needs "
-                        "io/contours.py and io/gdsii.py, refused")
+                   help="write the decomposed masks' contours as a GDS "
+                        "cell (mask i on layer i)")
     p.set_defaults(func=cmd_lele)
 
 
@@ -1286,7 +1363,16 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--flare-kernel", type=float, default=0.0,
                    help="flare spread sigma in nm (0 = uniform background)")
     p.add_argument("--out", default=None, help="output .npy path")
+    p.add_argument("--plot", default=None,
+                   help="output .png figure path (needs matplotlib)")
     p.set_defaults(func=cmd_simulate)
+
+    p = sub.add_parser("demo", help="reference demo pipeline + figure")
+    _add_common(p)
+    p.add_argument("--solver", default="gau23", choices=["gau23", "direct"])
+    p.add_argument("--out", default=None,
+                   help="figure path (default demo.png; needs matplotlib)")
+    p.set_defaults(func=cmd_demo)
 
     p = sub.add_parser("socs", help="build (and save) SOCS kernels")
     _add_common(p)

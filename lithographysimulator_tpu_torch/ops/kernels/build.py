@@ -6,16 +6,22 @@ with a plain C interface, on first use, into ``_build/`` inside this package
 source and the flags, so an edited source rebuilds and a stale library is
 never loaded. Nothing here runs at import: the CPU tests import every
 module and have no ``nvcc``.
+
+Threads of one process (a server's batch worker and job runner) may make
+their first kernel call together: builds and loads run under
+:data:`BUILD_LOCK`, which the host rasterizer's build (``io/native.py``)
+shares, and each compiler writes a temporary file of its own process and
+thread before the finished library is moved into place.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -34,6 +40,11 @@ SIGNATURES = {
     "column_intensity": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "set_dynamic_smem": (_I,),
 }
+
+
+#: serializes every build and load of the package's native libraries
+BUILD_LOCK = threading.RLock()
+_LIBRARY = None
 
 
 def _nvcc() -> str:
@@ -56,25 +67,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libintensity_int8-{digest.hexdigest()[:16]}.so"
 
 
+def compile_library(argv: list, source: Path, lib: Path) -> str:
+    """Run the compiler ``argv`` (its path and flags) on ``source`` into
+    ``lib``; returns its output. It writes a temporary file of this process
+    and thread, moved into place in one step, so a concurrent build never
+    loads a half-written library. Raises with the compiler's stderr."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        proc = subprocess.run([*argv, "-o", str(tmp), str(source)],
+                              capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"{argv[0]} could not run: {exc}") from exc
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{argv[0]} failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return proc.stdout + proc.stderr
+
+
 def build() -> tuple[Path, str]:
     """Compile the library unless an up-to-date one exists; returns its path
     and nvcc's output (``-Xptxas -v``: registers, shared memory, spills per
     kernel), kept beside the library for later calls."""
-    lib = library_path()
-    log = lib.with_suffix(".log")
-    if lib.exists() and log.exists():
-        return lib, log.read_text()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a half-written file
-    return lib, log.read_text()
+    with BUILD_LOCK:
+        lib = library_path()
+        log = lib.with_suffix(".log")
+        if lib.exists() and log.exists():
+            return lib, log.read_text()
+        log_text = compile_library([_nvcc(), *NVCC_FLAGS], SOURCE, lib)
+        log.write_text(log_text)
+        return lib, log_text
 
 
 def sass(lib: Path) -> str:
@@ -84,12 +107,18 @@ def sass(lib: Path) -> str:
                           text=True, check=True).stdout
 
 
-@functools.cache
 def load_library() -> ctypes.CDLL:
-    """The built library with every C function's argument types declared."""
-    lib = ctypes.CDLL(str(build()[0]))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """The built library with every C function's argument types declared,
+    built and loaded once a process."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    with BUILD_LOCK:
+        if _LIBRARY is None:
+            lib = ctypes.CDLL(str(build()[0]))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBRARY = lib
+        return _LIBRARY

@@ -41,6 +41,8 @@ of :data:`K_ALIGN` (exact: zero limbs add nothing); scales are f32
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -51,11 +53,21 @@ K_ALIGN = 32
 #: kernel launches by name (wrappers count only their CUDA launches)
 LAUNCHES = {"window_product_limbs": 0, "row_limb_gemm": 0,
             "row_requantize": 0, "column_intensity": 0}
+# a server's threads launch together, and ``+= 1`` on a dict entry is a
+# read, an add and a write: without the lock a launch can go uncounted
+_LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to :data:`LAUNCHES`."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def padded_width(w: int) -> int:
@@ -282,7 +294,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def row_limb_gemm(x_limbs, x_scales, t_limbs, t_scales, *, fast: bool = False):

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 import time
 from typing import Literal
 
@@ -183,7 +184,11 @@ def _pupil_power(pupil, config, polarization, apodize) -> float:
 # polarization, apodize, spectrum, device). The kernels stay on their
 # device, so the cache is bounded in bytes as well as in entries (the
 # oldest go first): 16 kernel sets of rank 256 at 2048^2 would hold 137 GB.
+# A server's batch worker and job runner share it, so every look-up,
+# insertion and eviction holds the lock; builds run outside it (two threads
+# that miss on one key both build, and the second insertion wins).
 _SOCS_BUILD_CACHE: dict = {}
+_SOCS_BUILD_CACHE_LOCK = threading.Lock()
 _SOCS_BUILD_CACHE_MAX = 16
 _SOCS_BUILD_CACHE_BYTES = 16e9
 
@@ -220,7 +225,8 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
            None if geo is None else geo.tobytes(),
            chunk if tolerance is not None else None,
            mask3d if tolerance is not None else None, str(device))
-    hit = _SOCS_BUILD_CACHE.get(key)
+    with _SOCS_BUILD_CACHE_LOCK:
+        hit = _SOCS_BUILD_CACHE.get(key)
     if hit is not None:
         return hit
     pupil = pupil_function(aberrations, config, device=device)
@@ -300,13 +306,21 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
         socs = build(int(rank))
         energy = energy_of(socs)
     hit = (socs, pupil, energy, bound)
-    _SOCS_BUILD_CACHE[key] = hit
-    while len(_SOCS_BUILD_CACHE) > 1 and (
-            len(_SOCS_BUILD_CACHE) > _SOCS_BUILD_CACHE_MAX
-            or sum(h[0].kernels.nbytes for h in _SOCS_BUILD_CACHE.values())
-            > _SOCS_BUILD_CACHE_BYTES):
-        _SOCS_BUILD_CACHE.pop(next(iter(_SOCS_BUILD_CACHE)))
+    with _SOCS_BUILD_CACHE_LOCK:
+        _SOCS_BUILD_CACHE[key] = hit
+        while len(_SOCS_BUILD_CACHE) > 1 and (
+                len(_SOCS_BUILD_CACHE) > _SOCS_BUILD_CACHE_MAX
+                or sum(h[0].kernels.nbytes for h in _SOCS_BUILD_CACHE.values())
+                > _SOCS_BUILD_CACHE_BYTES):
+            _SOCS_BUILD_CACHE.pop(next(iter(_SOCS_BUILD_CACHE)))
     return hit
+
+
+def socs_cache_stats() -> tuple[int, int]:
+    """(entries, bytes of kernels) held by the SOCS kernel-set cache."""
+    with _SOCS_BUILD_CACHE_LOCK:
+        return (len(_SOCS_BUILD_CACHE),
+                int(sum(h[0].kernels.nbytes for h in _SOCS_BUILD_CACHE.values())))
 
 
 def _normalized(image: torch.Tensor, total: float) -> torch.Tensor:

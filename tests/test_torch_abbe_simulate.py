@@ -245,7 +245,8 @@ def test_profiling_on_cpu():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (and its CLI, kernels and interop) loads no jax."""
+    """Importing the port (and its CLI, kernels, interop, io and server)
+    loads no jax."""
     code = ("import sys, lithographysimulator_tpu_torch, "
             "lithographysimulator_tpu_torch.cli, "
             "lithographysimulator_tpu_torch.interop, "
@@ -266,7 +267,14 @@ def test_import_leaves_jax_out():
             "lithographysimulator_tpu_torch.models.sraf, "
             "lithographysimulator_tpu_torch.models.multipatterning, "
             "lithographysimulator_tpu_torch.utils.artifacts, "
-            "lithographysimulator_tpu_torch.ops.kernels.build; "
+            "lithographysimulator_tpu_torch.ops.kernels.build, "
+            "lithographysimulator_tpu_torch.io, "
+            "lithographysimulator_tpu_torch.io.native, "
+            "lithographysimulator_tpu_torch.io.gdsii, "
+            "lithographysimulator_tpu_torch.io.oasis, "
+            "lithographysimulator_tpu_torch.io.layout, "
+            "lithographysimulator_tpu_torch.io.contours, "
+            "lithographysimulator_tpu_torch.serve; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lithographysimulator_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -7,7 +7,8 @@ packages' kernel builds are exact, so every value of the report but the
 wall clock equals JAX's: the CD matrix and the process window are
 pixel-quantized widths of binary develops; the subpixel and gradient
 statistics (CDU, NILS, EPE, PV bands) are held to 1e-4 relative
-(tests/test_torch_metrology.py's class).
+(tests/test_torch_metrology.py's class). fem --stream reads the tiles
+from a GDSII layout, as the JAX CLI does.
 """
 
 import io
@@ -93,8 +94,40 @@ def test_cli_fem_matches_jax(tmp_path):
         np.testing.assert_array_equal(pv[key], pv_ref[key])
 
 
+def _lines_gds(path, big_n: int = 128, px: float = 25.0) -> None:
+    """A GDSII chip of vertical lines (8 px wide, 16 px pitch) on layer 1
+    and a decoy square on layer 2, spanning ``big_n`` pixels."""
+    from lithographysimulator_tpu_torch.io.gdsii import write_gds
+
+    h = big_n * px
+    lines = [(1, np.array([[x, 0.0], [x + 8 * px, 0.0], [x + 8 * px, h],
+                           [x, h]])) for x in np.arange(4, big_n - 8, 16) * px]
+    decoy = (2, np.array([[0.0, 0.0], [h, 0.0], [h, h], [0.0, h]]))
+    write_gds(path, {"TOP": lines + [decoy]})
+
+
+def test_cli_fem_stream_matches_jax_and_the_array_path(tmp_path):
+    """fem --stream reads the tile windows from the GDSII layout: its report
+    equals the JAX CLI's --stream report, and the port's array path on the
+    same --mask-file (the chip rasterized whole), but for the wall clock
+    and the EPE, which only the array path can measure (it holds the
+    target geometry; the JAX CLI's stream report has none either)."""
+    gds = tmp_path / "chip.gds"
+    _lines_gds(gds)
+    layout = ["--mask-file", str(gds), "--gds-layer", "1"]
+    stream = _report(pcli, FEM + layout + ["--device", "cpu", "--stream"])
+    ref = _report(jcli, FEM + layout + ["--stream"])
+    whole = _report(pcli, FEM + layout + ["--device", "cpu"])
+    for r in (stream, ref, whole):
+        assert r.pop("wall_clock_s") >= 0
+    assert stream["big_n"] == 128 and np.asarray(stream["cd_nm"]).shape == (3, 3)
+    assert stream["cd_nm"] == ref["cd_nm"]
+    _assert_close(stream, ref)
+    assert "epe" not in stream and whole.pop("epe")["matched"] > 0
+    assert stream == whole
+
+
 def test_cli_fem_refusals(capsys):
-    with pytest.raises(SystemExit, match="io/layout.py"):
+    """What fem still refuses: --stream without a layout --mask-file."""
+    with pytest.raises(SystemExit, match="--stream requires --mask-file"):
         pcli.main([*FEM, "--device", "cpu", "--stream"])
-    with pytest.raises(SystemExit, match="io/layout.py"):
-        pcli.main([*FEM, "--device", "cpu", "--mask-file", "chip.gds"])

@@ -12,8 +12,8 @@ for smo and 5e-5 for fitaberr's near-equal normalized images), the
 fitted coefficients within 1e-5 of the largest (and the report's
 6-decimal rounding); the fidelity, MRC and
 feature reports, which threshold images that agree in the float32 class,
-are equal but for their floats, held to 1e-4 relative. lele --gds is
-refused (ROADMAP.md Queue 3, D9).
+are equal but for their floats, held to 1e-4 relative. lele --gds writes
+the same GDSII bytes as the JAX CLI (D9, closed).
 """
 
 import io
@@ -147,9 +147,26 @@ def test_cli_lele_matches_jax(tmp_path):
 
 
 def test_cli_lele_gds_is_refused(tmp_path):
-    """D9: --gds needs io/contours.py and io/gdsii.py; refused before any
-    imaging, and no file is written."""
-    gds = tmp_path / "lele.gds"
-    with pytest.raises(SystemExit, match="io/gdsii.py"):
-        pcli.main(LELE + ["--device", "cpu", "--gds", str(gds)])
-    assert not gds.exists()
+    """D9 is closed: ``--gds`` is no longer refused. It writes the
+    decomposed masks' contours (mask i on layer i) as the JAX CLI does, to
+    the same bytes, and the GDS re-rasterizes to the masks."""
+    from lithographysimulator_tpu_torch.io.contours import rasterize_loops
+    from lithographysimulator_tpu_torch.io.gdsii import read_gds
+
+    extra = ["--out", None, "--gds", None]
+    for module, tag, dev in ((pcli, "p", ["--device", "cpu"]), (jcli, "j", [])):
+        extra[1], extra[3] = str(tmp_path / f"{tag}.npz"), str(tmp_path / f"{tag}.gds")
+        out = io.StringIO()
+        with redirect_stdout(out):
+            assert module.main(LELE + dev + extra) == 0
+        assert "mask i on layer i" in out.getvalue()
+    gds = (tmp_path / "p.gds").read_bytes()
+    assert gds == (tmp_path / "j.gds").read_bytes()
+    masks = np.load(tmp_path / "p.npz")
+    polys = read_gds(tmp_path / "p.gds").flatten("LELE")
+    for layer, key in ((1, "mask_a"), (2, "mask_b")):
+        loops = [p.xy_nm for p in polys if p.layer == layer]
+        assert loops
+        np.testing.assert_array_equal(
+            rasterize_loops(loops, pixel_size=25.0, n=64) > 0.5,
+            masks[key] > 0.5)

@@ -101,16 +101,40 @@ def test_cli_resist3d_film_and_volumetric_stochastic_match_jax():
 
 def test_cli_resist3d_refusals(capsys):
     """What resist3d still refuses: the separable model's --reflectivity
-    with --film (as the JAX CLI), and a layout --mask-file, which needs
-    io/layout.py. --big-n is no longer refused: with --film it tiles the
-    chip (next test), without it the flag is unused, as in the JAX CLI."""
+    with --film (as the JAX CLI). --big-n is no longer refused: with
+    --film it tiles the chip (next test), without it the flag is unused,
+    as in the JAX CLI; a layout --mask-file is read (the test after)."""
     assert pcli.main(["resist3d", "--device", "cpu", "--pixel-number", "32",
                       "--mask", "lines", "--film", "--reflectivity", "0.2"]) == 2
     assert "--reflectivity" in capsys.readouterr().err
-    for film in ([], ["--film"]):
-        with pytest.raises(SystemExit, match="io/layout.py"):
-            pcli.main(["resist3d", "--device", "cpu", "--pixel-number", "32",
-                       "--big-n", "64", "--mask-file", "chip.gds", *film])
+
+
+@pytest.mark.parametrize("film", [[], ["--film"]])
+def test_cli_resist3d_layout_mask_file_matches_npy(tmp_path, film):
+    """A GDSII --mask-file (with --big-n and --film: the tiled film stack)
+    gives the report and profile of the same chip rasterized to .npy."""
+    from lithographysimulator_tpu_torch import OpticsConfig
+    from lithographysimulator_tpu_torch.io import mask_from_layout, write_gds
+
+    gds = tmp_path / "chip.gds"
+    write_gds(gds, {"TOP": [(1, np.array([[x, 0.0], [x + 150.0, 0.0],
+                                          [x + 150.0, 1600.0], [x, 1600.0]]))
+                            for x in (100.0, 500.0, 900.0, 1300.0)]})
+    big = 64 if film else 32
+    np.save(tmp_path / "chip.npy", mask_from_layout(
+        gds, OpticsConfig(pixel_number=big), device="cpu").geometry.numpy())
+    argv = ["resist3d", "--device", "cpu", "--pixel-number", "32", "--big-n",
+            "64", "--nz", "3", "--source", "classical", "--sigma-out", "0.2",
+            "--rank", "24", "--halo", "8", *film]
+    reports = []
+    for mask_file in ("chip.gds", "chip.npy"):
+        reports.append(_report(pcli, argv + [
+            "--mask-file", str(tmp_path / mask_file), "--gds-layer", "1",
+            "--out", str(tmp_path / f"{mask_file}.npz")]))
+        assert reports[-1].pop("wall_clock_s") >= 0
+    assert reports[0] == reports[1] and 0 < reports[0]["cleared_fraction"] < 1
+    np.testing.assert_array_equal(np.load(tmp_path / "chip.gds.npz")["profile"],
+                                  np.load(tmp_path / "chip.npy.npz")["profile"])
 
 
 def test_cli_resist3d_film_big_n_matches_jax(tmp_path):
