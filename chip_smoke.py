@@ -263,7 +263,37 @@ if it launched a kernel where none was expected or none where some were:
 41. every kernel launched in phases 36-40 (phase 36 none),
     window_product_limbs as often as row_limb_gemm.
 
-Run time on one H100 is about 6 minutes, most of it phase 4's int8 run,
+Multi-device (parallel/*) at full width on a 4-entry mesh of cuda:0 (one
+card runs the shards one after another), and, where there are two or more
+cards, phases 42 and 44 again over every card (the kernels' shared-memory
+limit is set for each device: ROADMAP F9); each phase prints its wall
+time, memory peak and launches, and fails if it launched no kernel:
+
+42. the 1024^2 headline's 49,400 points padded to 49,408 through
+    abbe_image_sharded: within 1e-6 of simulate(), exactly 12,352 launches
+    of each kernel (3,088 a shard), points/s beside the single device's
+    (abbe_image_points on the same list, warm); through_focus_sharded over
+    2 planes on a (2, 2) mesh, the in-focus plane within 1e-6;
+43. the rank-256 build of bench.py:102-115 (Nystrom, power_iters=1)
+    through randomized_socs_sharded against the local build at the same
+    seed (eigenvalues to rtol 1e-4, atol 1e-6 of the leading one; the
+    image within 1e-5), with seconds and memory peaks of both;
+    socs_image_sharded within 1e-6 of the local int8 apply, exactly 64
+    launches of each kernel (16 a shard);
+44. phase 27's 8192^2 chip through tiled_socs_image_sharded at rank 256:
+    equal to tiled_socs_image bit for bit, exactly 6,400 launches;
+45. print_probability_sharded (16 trials) and
+    print_probability_volume_sharded (8 trials) equal to the
+    single-device bands bit for bit; film_stack_sharded (3 slabs, every
+    41st point) within 1e-5 of film_stack_images; fem_cd_matrix_sharded on
+    a (2, 2) mesh, CDs within 1e-4 (relative) of the same math on the
+    single-device focal stack, growing with dose;
+46. one optimize(mesh=) step at 1024^2 on every 41st point (1,205): the
+    loss within 1e-6 (relative) and the mask gradient within 1e-6 *
+    max|g| of mesh=None; then dryrun_multichip(4), the seven patterns at
+    64^2; the summed launches of phases 42-46 and device_count.
+
+Run time on one H100 is about 7 minutes, most of it phase 4's int8 run,
 phase 5's host oracle, phase 8's exact image, phases 13 and 15's exact
 images, phase 20's fits and film slabs, and phases 27-29's full chips.
 
@@ -284,8 +314,8 @@ is nvidia-smi's name and power limit, and the one before that lists each
 kernel with its launches, error, times and bound (launches on phases 3-5,
 socs_launches on phases 8-11, vector_launches on phases 13-16,
 m3d_launches on phases 18-20, resist_launches on phases 22-25,
-tiled_launches on phases 27-29, optimize_launches on phases 31-34 and
-serve_launches on phases 36-40; ms,
+tiled_launches on phases 27-29, optimize_launches on phases 31-34,
+serve_launches on phases 36-40 and parallel_launches on phases 42-46; ms,
 library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
 and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 """
@@ -364,6 +394,8 @@ JOB_RANK = 64  # phase 39's tiled, fem and 512^2-tile jobs
 JOB_TILE_N = 512  # phase 39's opc, stochastic, lele and film tiles
 JOB_BIG_N = 1024  # their chip
 TOL_LAYOUT = 1e-6  # a layout or served image against the array path's
+PARALLEL_ENTRIES = 4  # phases 42-46: a mesh of MESH_ENTRY x 4
+MESH_ENTRY = "cuda:0"
 
 
 def log(msg: str) -> None:
@@ -2787,6 +2819,287 @@ def phase_router(torch, lt, ik, launches: dict, serve, srv, url: str,
     _phase_end(torch, ik, 40, t0, launches, True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 42-46: multi-device (parallel/*) on a mesh of cuda:0 entries
+# ---------------------------------------------------------------------------
+
+def _card_meshes(torch) -> list:
+    """(tag, device list) of the meshes phases 42 and 44 run on: 4 entries
+    of cuda:0 (one card), and every visible card when there are two or
+    more (F9's witness: the kernels launch on a second card's context)."""
+    meshes = [(f"{MESH_ENTRY} x {PARALLEL_ENTRIES}",
+               [MESH_ENTRY] * PARALLEL_ENTRIES)]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        meshes.append((f"{count} cards", [f"cuda:{i}" for i in range(count)]))
+    return meshes
+
+
+def _per_call(ik, base: dict) -> dict:
+    return {k: v - base[k] for k, v in ik.LAUNCHES.items()}
+
+
+def _same_launches(tag: str, got: dict, expect: int) -> None:
+    log(f"  {tag}: launches {got} (expected {expect} of each)")
+    if any(v != expect for v in got.values()):
+        raise AssertionError(f"{tag}: each kernel should launch {expect} "
+                             f"times: {got}")
+
+
+def phase_sharded_exact(torch, lt, ik, launches: dict):
+    """Phase 42: the 1024^2 exact headline through abbe_image_sharded.
+    Returns (cfg, single-device image) for phase 45."""
+    from lithographysimulator_tpu_torch import parallel
+
+    from lithographysimulator_tpu_torch.ops.abbe import abbe_image_points
+
+    t0 = _phase_start(torch, ik)
+    cfg, mask, src = _headline_setup(lt, 1024)
+    res, t_sim = _timed(torch, lambda: lt.simulate(mask, src, device=DEVICE))
+    single = check_image(res.image, cfg.n)
+    points = res.report["source_points"]
+    # the single device on the same padded list as the 4-entry mesh, warm
+    shifts, weights, _ = parallel.padded_source_arrays(src, PARALLEL_ENTRIES * 4)
+    _, t_single = _timed(torch, lambda: abbe_image_points(
+        res.spectrum, res.pupil, shifts, weights, cfg, device=DEVICE))
+    log(f"[phase 42] {cfg.n}^2 exact headline, {points} points; simulate() "
+        f"{t_sim:.3f} s; abbe_image_points on one device, warm: "
+        f"{t_single:.3f} s, {points / t_single:.1f} points/s")
+    for tag, devices in _card_meshes(torch):
+        mesh = parallel.source_mesh(devices=devices)
+        shifts, weights, _ = parallel.padded_source_arrays(
+            src, len(devices) * 4)
+        base = dict(ik.LAUNCHES)
+        img, t = _timed(torch, lambda: parallel.abbe_image_sharded(
+            res.spectrum, res.pupil, shifts, weights, cfg, mesh))
+        log(f"  abbe_image_sharded on {tag} ({len(shifts)} padded points, "
+            f"{len(shifts) // 4 // len(devices)} chunks a shard): {t:.3f} s, "
+            f"{points / t:.1f} points/s ({t_single / t:.3f}x the single "
+            f"device's rate)")
+        _same_launches(f"abbe_image_sharded on {tag}", _per_call(ik, base),
+                       len(shifts) // 4)
+        check(f"sharded exact on {tag} vs simulate (nrms)",
+              nrms(check_image(img, cfg.n), single), TOL_MATMUL)
+        del img
+    mesh2 = parallel.focus_source_mesh(2, 2, devices=[MESH_ENTRY] * 4)
+    shifts, weights, _ = parallel.padded_source_arrays(src, 2 * 4)
+    stack_ab = lt.focus_stack_aberrations(np.zeros(5, np.float32),
+                                          np.array(FOCUS_PLANES[1:], np.float32))
+    stack, t = _timed(torch, lambda: parallel.through_focus_sharded(
+        res.spectrum, stack_ab, shifts, weights, cfg, mesh2))
+    log(f"  through_focus_sharded, planes {FOCUS_PLANES[1:]} nm on the (2, 2) "
+        f"mesh: {t:.3f} s")
+    check("through_focus_sharded in-focus plane vs simulate (nrms)",
+          nrms(check_image(stack[0], cfg.n), single), TOL_MATMUL)
+    planes = stack.cpu().numpy()
+    if not (np.isfinite(planes).all() and planes[1].max() < planes[0].max()):
+        raise AssertionError("the defocused plane should lose peak intensity")
+    del stack
+    _phase_end(torch, ik, 42, t0, launches, True)
+    return cfg, res.image
+
+
+def phase_sharded_socs(torch, lt, ik, launches: dict) -> None:
+    """Phase 43: the rank-256 build sharded against the local build, and
+    the rank-sharded int8 apply."""
+    from lithographysimulator_tpu_torch import parallel
+
+    t0 = _phase_start(torch, ik)
+    cfg, mask, src = _headline_setup(lt, 1024)
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device=DEVICE)
+    mesh = parallel.source_mesh(devices=[MESH_ENTRY] * PARALLEL_ENTRIES)
+    kw = dict(rank=SOCS_RANK, power_iters=1, method="nystrom", seed=0)
+    lt.randomized_socs(pupil, src, cfg, **kw)  # warm libraries
+    local, t_l, peak_l = _build_peak(torch, lambda: lt.randomized_socs(
+        pupil, src, cfg, **kw))
+    sharded, t_s, peak_s = _build_peak(torch, lambda: parallel.randomized_socs_sharded(
+        pupil, src, cfg, mesh, **kw))
+    log(f"[phase 43] {cfg.n}^2 rank-{SOCS_RANK} build (Nystrom, power_iters=1, "
+        f"bench.py's): local {t_l:.4f} s, peak {peak_l:.3f} GB; sharded over "
+        f"{MESH_ENTRY} x {PARALLEL_ENTRIES} {t_s:.4f} s, peak {peak_s:.3f} GB")
+    vals_l = local.eigenvalues.double().cpu().numpy()
+    vals_s = sharded.eigenvalues.double().cpu().numpy()
+    worst = float(np.max(np.abs(vals_s - vals_l)
+                         / (1e-4 * np.abs(vals_l) + 1e-6 * vals_l[0])))
+    check("sharded eigenvalues vs local, |d| / (1e-4 |l| + 1e-6 l0)", worst, 1.0)
+    img_l = check_image(lt.socs_image(spectrum, local, cfg), cfg.n)
+    check("sharded build's image vs the local build's (nrms)",
+          nrms(check_image(lt.socs_image(spectrum, sharded, cfg), cfg.n), img_l),
+          TOL_SOCS_PAIR)
+    del sharded
+    parallel.socs_image_sharded(spectrum, local, cfg, mesh)  # warm-up
+    base = dict(ik.LAUNCHES)
+    img, t = _timed(torch, lambda: parallel.socs_image_sharded(
+        spectrum, local, cfg, mesh))
+    log(f"  socs_image_sharded over {MESH_ENTRY} x {PARALLEL_ENTRIES}: {t:.4f} s")
+    _same_launches("socs_image_sharded", _per_call(ik, base), SOCS_RANK // 4)
+    check("rank-sharded int8 apply vs the local int8 apply (nrms)",
+          nrms(check_image(img, cfg.n), img_l), TOL_MATMUL)
+    del local, img
+    _phase_end(torch, ik, 43, t0, launches, True)
+
+
+def phase_sharded_tiled(torch, lt, ik, launches: dict) -> None:
+    """Phase 44: phase 27's 8192^2 chip through tiled_socs_image_sharded."""
+    from lithographysimulator_tpu_torch import parallel
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    t0 = _phase_start(torch, ik)
+    n = TILE_N
+    cfg, _, src = _headline_setup(lt, n)
+    halo = lt.default_halo(cfg)
+    tiles, step = tile_layout(TILED_BIG_N, n, halo)
+    chip = _chip_layout(lt, torch, TILED_BIG_N, n, step)
+    pupil = lt.pupil_function(np.zeros(1, np.float32), cfg, device=DEVICE)
+    socs = lt.randomized_socs(pupil, src, cfg, rank=SOCS_RANK)
+    ref, t_ref = _timed(torch, lambda: lt.tiled_socs_image(chip, socs, cfg))
+    log(f"[phase 44] {TILED_BIG_N}^2 chip, {tiles * tiles} tiles of {n}^2, "
+        f"rank {SOCS_RANK}: tiled_socs_image {t_ref:.3f} s")
+    for tag, devices in _card_meshes(torch):
+        mesh = parallel.source_mesh(devices=devices)
+        base = dict(ik.LAUNCHES)
+        img, t = _timed(torch, lambda: parallel.tiled_socs_image_sharded(
+            chip, socs, cfg, mesh))
+        padded = -(-tiles * tiles // len(devices)) * len(devices)
+        log(f"  tiled_socs_image_sharded on {tag}: {t:.3f} s, "
+            f"{tiles * tiles / t:.2f} tiles/s ({padded - tiles * tiles} dummy "
+            f"tiles)")
+        _same_launches(f"tiled_socs_image_sharded on {tag}", _per_call(ik, base),
+                       padded * SOCS_RANK // 4)
+        same = bool(torch.equal(img, ref))
+        log(f"  stitched image equal to tiled_socs_image bit for bit: {same}")
+        if devices[0] == devices[-1] and not same:
+            raise AssertionError("on a repeated-cuda:0 mesh the sharded chip "
+                                 "must equal tiled_socs_image bit for bit")
+        check(f"sharded chip on {tag} vs tiled_socs_image (max abs, rel)",
+              float((img - ref).abs().max() / ref.abs().max()), TOL_STREAM)
+        del img
+    del ref, socs, chip
+    _phase_end(torch, ik, 44, t0, launches, True)
+
+
+def phase_sharded_resist(torch, lt, ik, launches: dict, cfg, image) -> None:
+    """Phase 45: the stochastic bands bit for bit, the film stack and the
+    FEM on the mesh against their single-device twins."""
+    from lithographysimulator_tpu_torch import parallel
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+
+    t0 = _phase_start(torch, ik)
+    mesh = parallel.source_mesh(devices=[MESH_ENTRY] * PARALLEL_ENTRIES)
+    model = lt.StochasticResist(dose_photons_per_nm2=20.0, diffusion_nm=8.0,
+                                threshold=0.3, pag_per_nm2=5.0)
+    trials = PARALLEL_ENTRIES * 4
+    band, t = _timed(torch, lambda: parallel.print_probability_sharded(
+        image, cfg, model, mesh, trials_per_device=4, seed=0))
+    host = lt.exposure_trials(image, cfg, model, trials=trials, seed=0,
+                              trial_chunk=8).sum(0).cpu().numpy()
+    band = band.cpu().numpy()
+    same = np.array_equal(band, host / np.float32(trials))
+    log(f"[phase 45] print_probability_sharded, {trials} trials over "
+        f"{MESH_ENTRY} x {PARALLEL_ENTRIES}: {t:.3f} s; equal to the single-device "
+        f"band bit for bit: {same}; mean {band.mean():.6f}")
+    if not same:
+        raise AssertionError("the sharded band differs from the single-device band")
+
+    _, mask, src = _headline_setup(lt, cfg.n)
+    sub = _subset(src, source_points(src), SUBSET_K)
+    wafer = lt.WaferStack(n_resist=1.71 + 0.01j, thickness_nm=120.0,
+                          under_layers=((37.0, 1.82 + 0.39j),))
+    depths = [20.0, 60.0, 100.0]
+    lt.film_stack_images(mask, sub, device=DEVICE, config=cfg,
+                         wafer_stack=wafer, depths_nm=depths)  # warm-up
+    film_local, t_l = _timed(torch, lambda: lt.film_stack_images(
+        mask, sub, device=DEVICE, config=cfg, wafer_stack=wafer,
+        depths_nm=depths))
+    film, t_s = _timed(torch, lambda: parallel.film_stack_sharded(
+        mask, sub, config=cfg, wafer_stack=wafer, mesh=mesh, depths_nm=depths))
+    log(f"  film stack, 3 slabs, every {SUBSET_K}th point: "
+        f"film_stack_images {t_l:.3f} s, film_stack_sharded {t_s:.3f} s")
+    check("film_stack_sharded vs film_stack_images (nrms)",
+          nrms(film.cpu().numpy(), film_local.cpu().numpy()), TOL_SOCS_PAIR)
+    vol, t = _timed(torch, lambda: parallel.print_probability_volume_sharded(
+        film_local, cfg, model, mesh, dz_nm=40.0, trials_per_device=2, seed=0))
+    ens = lt.stochastic_volume_ensemble(film_local, cfg, model, dz_nm=40.0,
+                                        trials=2 * PARALLEL_ENTRIES, seed=0)
+    same = np.array_equal(vol.cpu().numpy(), ens["print_probability"])
+    log(f"  print_probability_volume_sharded, {2 * PARALLEL_ENTRIES} trials: "
+        f"{t:.3f} s; equal to stochastic_volume_ensemble's band bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("the sharded volume band differs from the ensemble's")
+
+    mesh2 = parallel.focus_source_mesh(2, 2, devices=[MESH_ENTRY] * 4)
+    shifts, weights, _ = parallel.padded_source_arrays(sub, 2 * 4)
+    spectrum = lt.mask_spectrum(mask.geometry, cfg)
+    defocus = np.array([0.0, 60.0], np.float32)
+    doses = np.array([0.9, 1.0, 1.1], np.float32)
+    resist = lt.ResistModel(threshold=0.3, diffusion_nm=10.0)
+    cds, t = _timed(torch, lambda: parallel.fem_cd_matrix_sharded(
+        spectrum, np.zeros(5, np.float32), defocus, doses, shifts, weights, cfg,
+        mesh2, resist=resist))
+    stack = lt.through_focus_images(
+        spectrum, lt.focus_stack_aberrations(np.zeros(5, np.float32), defocus),
+        shifts, weights, cfg, device=DEVICE)
+    cut = resist.blur(stack / stack.max(), cfg)[:, cfg.n // 2].double()
+    twin = torch.stack([torch.sigmoid(resist.steepness * (cut * float(d)
+                                                          - resist.threshold))
+                        .sum(-1) * cfg.pixel_size for d in doses], dim=1)
+    cds = cds.double().cpu().numpy()
+    twin = twin.cpu().numpy()
+    log(f"  fem_cd_matrix_sharded on the (2, 2) mesh: {t:.3f} s; CDs (nm) "
+        f"{np.round(cds, 4).tolist()}")
+    check("FEM CDs vs the single-device focal stack's, max relative",
+          float(np.max(np.abs(cds - twin) / np.abs(twin))), 1e-4)
+    if not (np.diff(cds, axis=1) > 0).all():
+        raise AssertionError("the FEM CD should grow with dose")
+    _phase_end(torch, ik, 45, t0, launches, True)
+
+
+def phase_sharded_smo_dryrun(torch, lt, ik, launches: dict) -> None:
+    """Phase 46: an optimize(mesh=) step against the mesh=None step, and
+    the seven-pattern dry run on the card."""
+    from lithographysimulator_tpu_torch import optimize as opt
+    from lithographysimulator_tpu_torch import parallel
+    from lithographysimulator_tpu_torch.ops.abbe import source_points
+
+    t0 = _phase_start(torch, ik)
+    cfg, mask, src = _opt_setup(lt, OPT_N)
+    sub = _subset(src, source_points(src), SUBSET_K)
+    mesh = parallel.source_mesh(devices=[MESH_ENTRY] * PARALLEL_ENTRIES)
+    shifts, weights, live = parallel.padded_source_arrays(sub, PARALLEL_ENTRIES * 4)
+    problem = opt.SMOProblem(config=cfg)
+    ab = np.zeros(1, np.float32)
+    with torch.no_grad():
+        target = opt.forward(opt.init_params(problem, mask.geometry), ab, shifts,
+                             weights, problem)
+    start = np.full((cfg.n, cfg.n), 0.4, np.float32)
+    log(f"[phase 46] {OPT_N}^2 SMO on every {SUBSET_K}th point ({live} points)")
+    hist = {}
+    for tag, m in (("mesh=None", None), ("mesh", mesh)):
+        (_, hist[tag]), t = _timed(torch, lambda: opt.optimize(
+            problem, target, start, ab, shifts, weights, steps=1,
+            learning_rate=0.2, mesh=m))
+        log(f"  optimize, one step, {tag}: {t:.3f} s, loss {hist[tag][0]:.9e}")
+    check("optimize(mesh=) loss vs mesh=None, relative",
+          abs(hist["mesh"][0] - hist["mesh=None"][0]) / abs(hist["mesh=None"][0]),
+          1e-6)
+    grads = {}
+    for tag, m in (("mesh=None", None), ("mesh", mesh)):
+        params = {k: v.requires_grad_() for k, v in opt.init_params(
+            problem, start, device=DEVICE).items()}
+        opt.loss_fn(params, target, ab, shifts, weights, problem, m).backward()
+        grads[tag] = params["mask_latent"].grad
+    scale = float(grads["mesh=None"].abs().max())
+    check("optimize(mesh=) mask gradient vs mesh=None, max|dg|/max|g|",
+          float((grads["mesh"] - grads["mesh=None"]).abs().max()) / scale, 1e-6)
+    del grads, target
+    _, t = _timed(torch, lambda: parallel.dryrun_multichip(PARALLEL_ENTRIES, device=DEVICE))
+    log(f"  dryrun_multichip({PARALLEL_ENTRIES}) on the card: {t:.3f} s; "
+        f"torch.cuda.device_count() = {torch.cuda.device_count()}")
+    _phase_end(torch, ik, 46, t0, launches, True)
+
+
 def _fits_launched(fit_launches) -> None:
     """Phase 21's check of the fits alone: each int8 fit launched every
     kernel, one window_product_limbs a row_limb_gemm (no matmul fallback)."""
@@ -2933,6 +3246,23 @@ def main() -> int:
                              f"or window_product_limbs != row_limb_gemm: "
                              f"{serve_launches}")
 
+    parallel_launches = {}  # phases 42-46, each counted and checked apart
+    cfg, image = phase_sharded_exact(torch, lt, ik, parallel_launches)
+    phase_sharded_socs(torch, lt, ik, parallel_launches)
+    phase_sharded_tiled(torch, lt, ik, parallel_launches)
+    phase_sharded_resist(torch, lt, ik, parallel_launches, cfg, image)
+    del image
+    phase_sharded_smo_dryrun(torch, lt, ik, parallel_launches)
+    log("[phase 46 done]")
+    log(f"  launches in phases 42-46: {parallel_launches}; "
+        f"torch.cuda.device_count() = {torch.cuda.device_count()}")
+    missing = [k for k in KERNELS if parallel_launches.get(k, 0) <= 0]
+    if missing or (parallel_launches["window_product_limbs"]
+                   != parallel_launches["row_limb_gemm"]):
+        raise AssertionError(f"phases 42-46: kernels never launched {missing}, "
+                             f"or window_product_limbs != row_limb_gemm: "
+                             f"{parallel_launches}")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
          "launches": launches[k], **stats[k],
@@ -2943,7 +3273,8 @@ def main() -> int:
          "resist_launches": resist_launches[k],
          "tiled_launches": tiled_launches[k],
          "optimize_launches": optimize_launches[k],
-         "serve_launches": serve_launches[k]}
+         "serve_launches": serve_launches[k],
+         "parallel_launches": parallel_launches[k]}
         for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -94,6 +94,7 @@
 
 #include <cuda.h>  // CUtensorMap types; the encoder is found via the runtime
 #include <cuda_runtime.h>
+#include <atomic>
 #include <stdint.h>
 
 namespace {
@@ -841,13 +842,24 @@ inline dim3 tiles(int rows, int cols, int batch = 1) {
   return dim3((cols + BN - 1) / BN, (rows + BM - 1) / BM, batch);
 }
 
-// Raises the kernel's dynamic shared-memory limit to SMEM_BYTES once, then
-// launches it with smem_bytes(); returns the first error (0 = launched).
+// Raises the kernel's dynamic shared-memory limit to SMEM_BYTES once on
+// each device, then launches it with smem_bytes() on the current device;
+// returns the first error (0 = launched). The limit belongs to a device's
+// context, so a process that launches on two cards sets it on each: one
+// bit a device (ids below 64), set only after the attribute call succeeded.
 template <auto Kernel, class... Args>
 int launch_tiles(dim3 grid, cudaStream_t stream, Args... args) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (attr != cudaSuccess) return (int)attr;
+  static std::atomic<unsigned long long> raised{0};
+  int device = 0;
+  if (cudaError_t e = cudaGetDevice(&device)) return (int)e;
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ull << device;
+  if (!(raised.load(std::memory_order_acquire) & bit)) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    raised.fetch_or(bit, std::memory_order_release);
+  }
   Kernel<<<grid, THREADS, smem_bytes(), stream>>>(args...);
   return (int)cudaGetLastError();
 }

@@ -16,12 +16,11 @@ back to the host first.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
-from .._tensors import to_tensor
+from .._tensors import per_device_cache, to_tensor
 from ..config import OpticsConfig
 
 
@@ -72,7 +71,7 @@ def gaussian_transfer(n: int, pixel_size_nm: float, sigma_nm: float) -> np.ndarr
                   * (freqs[None, :] ** 2 + freqs[:, None] ** 2))
 
 
-@functools.lru_cache(maxsize=2)
+@per_device_cache(maxsize=2)
 def _transfer(n: int, pixel_size_nm: float, sigma_nm: float,
               device: torch.device) -> torch.Tensor:
     """:func:`gaussian_transfer` rounded to complex64 (as the JAX package

@@ -45,20 +45,23 @@ Solver = Literal["gau23", "direct"]
 ENGINES = ("fft", "matmul", "int8", "int8_fast")
 
 
-def resolve_engine(engine: str, *, device) -> str:
+def resolve_engine(engine: str, *, device, allowed=ENGINES) -> str:
     """``'auto'`` -> ``'int8'`` for a CUDA device (the hand-written
-    kernels) and ``'fft'`` for the CPU, mirroring the JAX package's TPU/CPU
-    split; explicit names are validated, and ``pallas`` is an alias of
+    kernels; ``'matmul'`` where ``allowed`` has no ``int8``) and ``'fft'``
+    for the CPU, mirroring the JAX package's TPU/CPU split; explicit names
+    are validated against ``allowed``, and ``pallas`` is an alias of
     ``int8``. ``int8_fast`` (2-limb, ~1.5e-5 normalized RMS) is never chosen
     automatically."""
     if engine == "pallas":
         engine = "int8"
-    if engine != "auto" and engine not in ENGINES:
+    if engine != "auto" and engine not in allowed:
         raise ValueError(
-            f"unknown field-transform engine {engine!r} (allowed: {ENGINES})")
+            f"unknown field-transform engine {engine!r} (allowed: {allowed})")
     if engine != "auto":
         return engine
-    return "int8" if torch.device(device).type == "cuda" else "fft"
+    if torch.device(device).type != "cuda":
+        return "fft"
+    return "int8" if "int8" in allowed else "matmul"
 
 
 def check_matmul_precision(matmul_precision: str) -> None:
@@ -101,6 +104,12 @@ def source_points(source_map, *, threshold: float = 0.0) -> SourcePoints:
     shifts = (idx - n // 2).astype(np.int32)
     weights = m[idx[:, 0], idx[:, 1]].astype(np.float32)
     return SourcePoints(shifts=shifts, weights=weights, live_count=len(idx))
+
+
+def dense_source_points(n: int) -> np.ndarray:
+    """All (n*n, 2) integer grid offsets, row-major, for the dense path."""
+    iy, ix = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    return (np.stack([iy.ravel(), ix.ravel()], axis=-1) - n // 2).astype(np.int32)
 
 
 def _pad_points(shifts: np.ndarray, weights: np.ndarray, chunk: int):
@@ -439,11 +448,25 @@ def abbe_image(
     engine: str = "auto",
 ) -> torch.Tensor:
     """Aerial image from a mask spectrum, pupil function and source: a
-    :class:`SourcePoints` list or an (n, n) source map (turned into points
-    on the host). Returns the (n, n) float32 image with the reference's
-    scaling; ``normalize=True`` divides by the total source weight."""
+    :class:`SourcePoints` list, an (n, n) source map (turned into points
+    on the host), or an (n, n) map tensor that requires grad (the dense
+    path over every grid point, differentiable in each pixel of the map,
+    as the JAX package's traced map). Returns the (n, n) float32 image
+    with the reference's scaling; ``normalize=True`` divides by the total
+    source weight."""
     if solver not in ("gau23", "direct"):
         raise ValueError(f"unknown abbe solver {solver!r}")
+    if isinstance(source, torch.Tensor) and source.requires_grad:
+        shifts = dense_source_points(config.n)
+        shifts, _ = _pad_points(shifts, np.zeros(len(shifts), np.float32),
+                                chunk)
+        flat = source.reshape(-1).to(torch.float32)
+        # zero padding on the map's device; the weights' sum (the
+        # normalization) stays in the graph, as F5's does
+        weights = torch.nn.functional.pad(flat, (0, len(shifts) - flat.numel()))
+        return abbe_image_points(
+            spectrum, pupil, shifts, weights, config, device=device,
+            solver=solver, chunk=chunk, normalize=normalize, engine=engine)
     if not isinstance(source, SourcePoints):
         source = source_points(source)
     shifts, weights = _pad_points(source.shifts, source.weights, chunk)

@@ -37,17 +37,17 @@ its backward recomputes through the float32 path (:mod:`.abbe`).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 import os
 
 import numpy as np
 import torch
 
-from .._tensors import to_tensor
+from .._tensors import per_device_cache, to_tensor
 from ..config import OpticsConfig
 from .abbe import (_intensity_windowed_int8, _postprocess_gau23,
-                   _zoom_dft_kernel, resolve_engine, source_points)
+                   _zoom_dft_kernel, check_matmul_precision, resolve_engine,
+                   source_points)
 from .compensated import rowdot3_compensated, rowdot_compensated
 from .fourier import centered_ifft2, crop_center, pad_center
 from .fraunhofer import separable_dft
@@ -188,7 +188,7 @@ def tcc_eigensystem(
                        total_rank=limit)
 
 
-@functools.lru_cache(maxsize=4)
+@per_device_cache(maxsize=4)
 def _int8_chirp(n: int, fft_size: int, device: torch.device):
     """The whole (n, n) chirp's float32 planes and their int8 row limbs
     and scales on ``device``: the int8 apply's T0, a function of the
@@ -209,6 +209,7 @@ def socs_image(
     solver: str = "gau23",
     chunk: int = 4,
     engine: str = "auto",
+    matmul_precision: str = "highest",
 ) -> torch.Tensor:
     """Aerial image ``I = sum_j lambda_j |F(phi_j * M)|^2`` on the kernels'
     device, post-processed as the Abbe engine's image.
@@ -217,7 +218,9 @@ def socs_image(
     int8 limb kernels (``int8``, ``int8_fast``); ``auto`` picks ``int8`` on
     CUDA and ``fft`` on the CPU. An explicit int8 engine raises unless
     ``solver='gau23'`` and ``fft_size >= n``; ``auto`` then takes
-    ``matmul``."""
+    ``matmul``. ``matmul_precision`` is the JAX package's argument: only
+    ``'highest'`` exists (:func:`.abbe.check_matmul_precision`)."""
+    check_matmul_precision(matmul_precision)
     if solver not in ("gau23", "direct"):
         raise ValueError(f"unknown socs solver {solver!r}")
     if engine == "pallas":  # the JAX package's alias of int8
@@ -1212,7 +1215,9 @@ def _kept_tail_mean(kernels: torch.Tensor, eigenvalues: torch.Tensor, spec,
 
 def socs_image_nrms_bound(socs: SOCSKernels, spectrum, image, *,
                           trace: float | None = None, pupil=None,
-                          source_map=None, config: OpticsConfig | None = None,
+                          source_map=None, polarization=None,
+                          apodize: bool = True,
+                          config: OpticsConfig | None = None,
                           total_weight: float | None = None) -> float:
     """A-priori bound on the truncation error's normalized RMS,
     nRMS = RMS(I_exact - I_socs) / max(I_exact), from the dropped eigenvalue
@@ -1228,9 +1233,12 @@ def socs_image_nrms_bound(socs: SOCSKernels, spectrum, image, *,
 
     ``image`` is the SOCS image the bound certifies; if it was normalized
     by the source-weight sum, pass that ``total_weight``. Give ``trace``,
-    or ``pupil`` and ``source_map`` to compute it.
+    or ``pupil`` and ``source_map`` to compute it (with ``polarization``,
+    ``apodize`` and ``config``: the vector operator's trace,
+    :func:`tcc_total_trace`).
 
-    With ``pupil``, ``source_map`` and ``config``, the exact tail mean
+    With ``pupil``, ``source_map`` and ``config`` (and no
+    ``polarization``: the refinement is scalar), the exact tail mean
     refines it: mean(Delta I) on the raw grid is
     :func:`_tcc_diag_weighted_m2` minus :func:`_kept_tail_mean` (floored at
     1e-6 of the former, the float rounding floor), and with
@@ -1239,9 +1247,9 @@ def socs_image_nrms_bound(socs: SOCSKernels, spectrum, image, *,
     the JAX package, on purpose (ROADMAP.md Queue 3, R1): the image is the
     central n x n crop of the fft_size grid, which can concentrate the tail
     by up to (fft_size/n)^2, so the factor 4 covers only fft_size <= 2n;
-    elsewhere this reports the sup bound above, where the JAX package
-    under-reports (e.g. 2.7e-2 against 6.1e-2 measured at pixel_number=64,
-    pixel_size=2.5, rank 2).
+    elsewhere, and without ``config``, this reports the sup bound above,
+    where the JAX package under-reports (e.g. 2.7e-2 against 6.1e-2
+    measured at pixel_number=64, pixel_size=2.5, rank 2).
 
     For randomized builds the kept pairs are Ritz approximations (the Ritz
     values under-estimate the true ones), so the bound holds in practice,
@@ -1251,11 +1259,10 @@ def socs_image_nrms_bound(socs: SOCSKernels, spectrum, image, *,
         if pupil is None or source_map is None:
             raise ValueError("socs_image_nrms_bound needs trace= or "
                              "pupil=/source_map= to compute it")
-        trace = tcc_total_trace(pupil, source_map)
-    refine = pupil is not None and source_map is not None
-    if refine and config is None:
-        raise ValueError("the tail-mean refinement (pupil=/source_map=) "
-                         "needs config= for its fft_size <= 2n condition")
+        trace = tcc_total_trace(pupil, source_map, polarization=polarization,
+                                apodize=apodize, config=config)
+    refine = (pupil is not None and source_map is not None
+              and polarization is None and config is not None)
     eig = socs.eigenvalues
     kept = float(eig.sum(dtype=torch.float64))
     dropped = max(trace - kept, 0.0)

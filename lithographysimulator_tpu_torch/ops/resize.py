@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from .._tensors import per_device_cache
+
 
 @functools.lru_cache(maxsize=128)
 def _interp_matrix_cached(n: int, scale: float, out_size: int) -> np.ndarray:
@@ -58,7 +60,7 @@ def bilinear_resize(img: torch.Tensor, scale: float,
     return w_r @ img.to(dtype) @ w_c.T
 
 
-@functools.lru_cache(maxsize=8)
+@per_device_cache(maxsize=8)
 def _interp_matrix_on(n: int, scale: float, out_size: int, dtype,
                       device: torch.device) -> torch.Tensor:
     """:func:`interp_matrix` as a ``dtype`` tensor on ``device``, uploaded

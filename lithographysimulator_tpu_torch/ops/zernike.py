@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from .._tensors import to_tensor
+from .._tensors import per_device_cache, to_tensor
 from ..config import OpticsConfig
 from ..grid import Grid
 
@@ -159,7 +159,7 @@ def wavefront_error(aberrations, config: OpticsConfig, *, device=None,
     return torch.tensordot(aberrations, basis, dims=1)
 
 
-@functools.lru_cache(maxsize=4)
+@per_device_cache(maxsize=4)
 def _basis_on(config: OpticsConfig, count: int, dtype,
               device: torch.device) -> torch.Tensor:
     """:func:`zernike_basis` as a ``dtype`` tensor on ``device``, uploaded

@@ -27,8 +27,10 @@ the overflow they take the JAX package's steps to float32 rounding
 (ROADMAP.md Queue 3, D10).
 
 Host data (numpy targets, geometries) needs ``device=``; tensors stay on
-their device. Multi-device SMO (``mesh=``) needs ``parallel/*``, which
-this port does not have yet.
+their device. With ``mesh=`` (a :class:`.parallel.Mesh`) the exact forward
+splits its source points over the mesh
+(:func:`.parallel.abbe_image_sharded`) and the image, the loss and the
+parameters live on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -73,13 +75,6 @@ def _device(device, *xs) -> torch.device:
         if isinstance(x, torch.Tensor):
             return x.device
     raise ValueError("host data needs an explicit device= (e.g. 'cuda' or 'cpu')")
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: multi-device SMO needs the port of parallel/* "
-            "(ROADMAP.md Queue 1, 'Multi-device'), which is not done yet")
 
 
 def _host_aberrations(aberrations) -> np.ndarray:
@@ -134,8 +129,9 @@ def _source_weights(params: dict, weights: torch.Tensor,
 def forward(params: dict, aberrations, shifts, weights, problem: SMOProblem,
             mesh=None) -> torch.Tensor:
     """Differentiable aerial image from SMO parameters, on the device of
-    ``params["mask_latent"]`` (host aberrations and weights move there)."""
-    _refuse_mesh(mesh)
+    ``params["mask_latent"]`` (host aberrations and weights move there);
+    with ``mesh`` the source points are split over it and the image is on
+    its first device."""
     cfg = problem.config
     latent = params["mask_latent"]
     device = latent.device
@@ -147,6 +143,12 @@ def forward(params: dict, aberrations, shifts, weights, problem: SMOProblem,
                                      dtype=torch.float32), cfg)
     w = _source_weights(params, to_tensor(weights, device=device,
                                           dtype=torch.float32), problem)
+    if mesh is not None:
+        from .parallel import abbe_image_sharded
+
+        return abbe_image_sharded(spectrum, pupil, _host_shifts(shifts), w,
+                                  cfg, mesh, solver=problem.solver,
+                                  chunk=problem.chunk, normalize=True)
     return abbe_image_points(spectrum, pupil, _host_shifts(shifts), w, cfg,
                              device=device, solver=problem.solver,
                              chunk=problem.chunk, normalize=True)
@@ -169,15 +171,15 @@ def make_train_step(problem: SMOProblem, optimizer, mesh=None):
     ``params`` into fresh leaf tensors and builds the optimizer on them.
     The returned ``params`` are the optimizer's tensors, updated in place;
     pass them and ``opt_state`` to the next step. ``loss`` is the loss
-    before the update (a detached 0-dim tensor)."""
-    _refuse_mesh(mesh)
+    before the update (a detached 0-dim tensor). ``mesh`` splits the
+    forward's source points over a :class:`.parallel.Mesh`."""
 
     def step(params, opt_state, target, aberrations, shifts, weights):
         if opt_state is None:
             params = _leaves(params)
             opt_state = optimizer(list(params.values()))
         (loss,) = _optimizer_steps(opt_state, lambda: loss_fn(
-            params, target, aberrations, shifts, weights, problem), 1)
+            params, target, aberrations, shifts, weights, problem, mesh), 1)
         return params, opt_state, loss
 
     return step
@@ -215,8 +217,10 @@ def optimize(
 ) -> tuple[dict, list[float]]:
     """Run SMO for ``steps`` Adam iterations on the exact Abbe model;
     returns (params, loss history). Runs on ``device``, else on the device
-    of the tensor ``target`` or ``geometry_init``."""
-    _refuse_mesh(mesh)
+    of the tensor ``target`` or ``geometry_init``; with ``mesh`` on the
+    mesh's first device, the forward's source points split over the mesh."""
+    if mesh is not None and device is None:
+        device = mesh.first
     device = _device(device, target, geometry_init)
     masters = _masters(init_params(problem, geometry_init, source_weights_init,
                                    device=device))
@@ -225,8 +229,8 @@ def optimize(
     shifts = _host_shifts(shifts)
     weights = to_tensor(weights, device=device, dtype=torch.float32)
     history = _adam_fit(list(masters.values()), lambda: loss_fn(
-        _working(masters), target, aberrations, shifts, weights, problem),
-        steps, learning_rate)
+        _working(masters), target, aberrations, shifts, weights, problem,
+        mesh), steps, learning_rate)
     return {k: v.detach().float() for k, v in masters.items()}, history
 
 

@@ -1,17 +1,23 @@
-"""Device description and stage timing.
+"""Device description, stage timing and profiler traces.
 
 Port of ``lithographysimulator_tpu/utils/profiling.py``. On a CUDA device a
 stage is timed with CUDA events recorded on the current stream, so the time
 is the device's own and the host does not wait inside the stage; on the CPU
-with ``time.perf_counter``.
+with ``time.perf_counter``. :func:`trace` and :func:`annotate` are the JAX
+package's ``jax.profiler`` helpers on ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import logging
 import time
+from pathlib import Path
 
 import torch
+
+logger = logging.getLogger("lithographysimulator_tpu_torch")
 
 
 class StageTimer:
@@ -24,8 +30,9 @@ class StageTimer:
     {'spectrum': 0.0012}
     """
 
-    def __init__(self, device):
+    def __init__(self, device, *, log: bool = False):
         self.device = torch.device(device)
+        self.log = log
         self.times: dict[str, float] = {}
         self._events: list = []
 
@@ -49,6 +56,8 @@ class StageTimer:
 
     def _add(self, name: str, seconds: float) -> None:
         self.times[name] = self.times.get(name, 0.0) + seconds
+        if self.log:
+            logger.info("stage %s: %.4f s", name, seconds)
 
     def report(self) -> dict:
         """Stage times so far; waits for the device's recorded stages."""
@@ -57,6 +66,42 @@ class StageTimer:
             self._add(name, start.elapsed_time(end) / 1000.0)
         self._events.clear()
         return dict(self.times)
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """Capture a ``torch.profiler`` trace (host, and the card's kernels
+    where there is one) around a block and write it to ``log_dir`` as a
+    Chrome trace (``trace.json``; view it in Perfetto or chrome://tracing).
+
+    >>> with trace("litho-trace"):
+    ...     image = simulate(...)
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def annotate(name: str):
+    """Decorator: label a function's work as the range ``name`` in profiler
+    traces (``torch.profiler.record_function``)."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
 def device_info(device) -> dict:

@@ -174,6 +174,69 @@ def test_normalize_and_dark_source():
     assert not dark.image.any()
 
 
+def _dense_inputs():
+    """tests/test_abbe.py's dense-path setup (demo bars, perfect pupil)
+    and ROADMAP F7's (annular 0.2/0.6, M in [0.5, 1.5) from seed 0)."""
+    cfg = jt.OpticsConfig(pixel_number=32)
+    spec = np.array(jt.spectrum_fft(jt.demo_bars(cfg).geometry, cfg))
+    pup = np.array(jt.pupil_function(np.zeros(1), cfg))
+    return cfg, spec, pup
+
+
+def test_dense_source_path_matches_point_list_and_jax():
+    """F7: a source map that requires grad takes the dense path over all
+    n^2 grid points; its image equals the point list's and JAX's traced
+    (jitted) dense path at tests/test_abbe.py's rtol 1e-4, with JAX's grid
+    offsets."""
+    import jax
+
+    cfg, spec, pup = _dense_inputs()
+    pcfg = config_from_jax(cfg)
+    src = np.asarray(jt.LightSource(cfg, sigma_out=0.4).classical())
+    np.testing.assert_array_equal(pa.dense_source_points(32),
+                                  ja.dense_source_points(32))
+    sparse = _np(pa.abbe_image(spec, pup, src, pcfg, device="cpu"))
+    dense = pa.abbe_image(spec, pup, torch.tensor(src).requires_grad_(),
+                          pcfg, device="cpu", chunk=64)
+    assert dense.requires_grad
+    np.testing.assert_allclose(_np(dense), sparse, rtol=1e-4,
+                               atol=1e-4 * sparse.max())
+    ref = np.asarray(jax.jit(lambda s: ja.abbe_image(spec, pup, s, cfg,
+                                                     chunk=64))(src))
+    np.testing.assert_allclose(_np(dense), ref, rtol=1e-4, atol=1e-4 * ref.max())
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_dense_source_path_gradient_matches_float64(normalize):
+    """F7: d sum(image * M) / d map reaches every one of the 1,024 pixels
+    of an annular map (chunk 8) and equals a float64 evaluation of the same
+    dense sum (the spectrum and pupil upcast, every point on the fft
+    engine in complex128) within 1e-6 * max|g|; with normalize=True the
+    map's sum is in the graph (as F5's)."""
+    cfg, spec, pup = _dense_inputs()
+    pcfg = config_from_jax(cfg)
+    src = np.asarray(jt.LightSource(cfg, sigma_in=0.2, sigma_out=0.6).annular())
+    m = np.random.default_rng(0).uniform(0.5, 1.5, (32, 32)).astype(np.float32)
+    leaf = torch.as_tensor(src).requires_grad_()
+    image = pa.abbe_image(spec, pup, leaf, pcfg, device="cpu", chunk=8,
+                          normalize=normalize)
+    (image * torch.as_tensor(m)).sum().backward()
+    g = leaf.grad.numpy()
+    assert (g != 0).all()
+
+    w64 = torch.as_tensor(src, dtype=torch.float64).reshape(-1).requires_grad_()
+    raw = pa.accumulate_intensity(
+        torch.as_tensor(pup, dtype=torch.complex128),
+        torch.as_tensor(spec, dtype=torch.complex128),
+        pa.dense_source_points(32), w64, pcfg, chunk=8, engine="fft")
+    img64 = pa._postprocess_gau23(raw, pcfg)
+    if normalize:
+        img64 = img64 / w64.sum()
+    (img64 * torch.as_tensor(m, dtype=torch.float64)).sum().backward()
+    ref = w64.grad.numpy().reshape(32, 32)
+    np.testing.assert_allclose(g, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+
+
 def test_engine_policy_and_slice_limits():
     assert pa.resolve_engine("auto", device="cpu") == "fft"
     assert pa.resolve_engine("auto", device=torch.device("cuda")) == "int8"
@@ -245,8 +308,9 @@ def test_profiling_on_cpu():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (and its CLI, kernels, interop, io and server)
-    loads no jax."""
+    """Importing the port (and its CLI, kernels, interop, io, server,
+    utils and parallel modules, and ops.abbe's dense-path names) loads no
+    jax."""
     code = ("import sys, lithographysimulator_tpu_torch, "
             "lithographysimulator_tpu_torch.cli, "
             "lithographysimulator_tpu_torch.interop, "
@@ -274,7 +338,21 @@ def test_import_leaves_jax_out():
             "lithographysimulator_tpu_torch.io.oasis, "
             "lithographysimulator_tpu_torch.io.layout, "
             "lithographysimulator_tpu_torch.io.contours, "
-            "lithographysimulator_tpu_torch.serve; "
+            "lithographysimulator_tpu_torch.serve, "
+            "lithographysimulator_tpu_torch.utils, "
+            "lithographysimulator_tpu_torch.parallel, "
+            "lithographysimulator_tpu_torch.parallel.mesh, "
+            "lithographysimulator_tpu_torch.parallel.distributed, "
+            "lithographysimulator_tpu_torch.parallel.abbe_sharded, "
+            "lithographysimulator_tpu_torch.parallel.socs_sharded, "
+            "lithographysimulator_tpu_torch.parallel.tiled_sharded, "
+            "lithographysimulator_tpu_torch.parallel.stochastic_sharded, "
+            "lithographysimulator_tpu_torch.parallel.film_sharded, "
+            "lithographysimulator_tpu_torch.parallel.fem_sharded, "
+            "lithographysimulator_tpu_torch.parallel.socs_build_sharded, "
+            "lithographysimulator_tpu_torch.parallel.dryrun; "
+            "from lithographysimulator_tpu_torch.ops.abbe import "
+            "dense_source_points, resolve_engine; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lithographysimulator_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -197,3 +197,174 @@ def pcli_args(flags):
     parser = argparse.ArgumentParser()
     pcli._add_common(parser)
     return parser.parse_args(flags)
+
+
+# ---------------------------------------------------------------------------
+# F8: the signature sweep and the repairs it found
+# ---------------------------------------------------------------------------
+
+#: (JAX module, name, method or None) -> why a JAX parameter (a list) or the
+#: whole name ("absent") has no counterpart in the port; decided in
+#: ROADMAP.md Queue 3
+SWEEP_EXCEPTIONS = {
+    # D2: a trial draws from a torch.Generator, not a jax.random key
+    ("models.stochastic", "StochasticResist", "deprotection"): ["key"],
+    ("models.stochastic", "StochasticResist", "contour"): ["key"],
+    ("models.stochastic", "StochasticResist", "deprotection_volume"): ["key"],
+    # the port times a stage with CUDA events: nothing to synchronize
+    ("utils.profiling", "StageTimer", None): ["sync"],
+    # wide accumulation is native float64 here (ops/compensated._wide)
+    ("ops.compensated", "two_sum", None): "absent",
+    # the plain versions (column_intensity_int8_plain et al.) are the
+    # reference of the limb math
+    ("ops.kernels.intensity_int8", "reference_window_intensity_int8", None):
+        "absent",
+}
+
+
+def _sweep() -> dict:
+    """Every public function and class (and each public method of such a
+    class) defined in a module of the JAX package whose port module
+    exists -> the JAX parameters its port namesake lacks (a port
+    ``**kwargs`` takes any name). ``xfer`` is dropped on purpose."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    def lacking(jobj, pobj):
+        try:
+            jparams = inspect.signature(jobj).parameters
+            pparams = inspect.signature(pobj).parameters
+        except ValueError:  # a builtin's subclass (an exception): no signature
+            return []
+        if any(p.kind == p.VAR_KEYWORD for p in pparams.values()):
+            return []
+        return [p for p in jparams if p not in pparams]
+
+    found = {}
+    for info in pkgutil.walk_packages(jt.__path__, "lithographysimulator_tpu."):
+        if info.name.rsplit(".", 1)[-1].startswith("_"):
+            continue
+        port_name = info.name.replace("lithographysimulator_tpu",
+                                      "lithographysimulator_tpu_torch", 1)
+        if importlib.util.find_spec(port_name) is None:
+            assert info.name.endswith(".xfer"), info.name
+            continue
+        jmod = importlib.import_module(info.name)
+        pmod = importlib.import_module(port_name)
+        short = info.name.split(".", 1)[1]
+        for name, obj in vars(jmod).items():
+            if (name.startswith("_") or getattr(obj, "__module__", None) != info.name
+                    or not (inspect.isfunction(obj) or inspect.isclass(obj))):
+                continue
+            pobj = getattr(pmod, name, None)
+            if pobj is None:
+                found[(short, name, None)] = "absent"
+                continue
+            if lack := lacking(obj, pobj):
+                found[(short, name, None)] = lack
+            if not inspect.isclass(obj):
+                continue
+            for meth, fn in vars(obj).items():
+                if meth.startswith("_") or not inspect.isfunction(fn):
+                    continue
+                pfn = getattr(pobj, meth, None)
+                if pfn is None:
+                    found[(short, name, meth)] = "absent"
+                elif lack := lacking(fn, pfn):
+                    found[(short, name, meth)] = lack
+    return found
+
+
+def test_every_jax_parameter_exists_in_the_port():
+    """F8's sweep: each parameter of every public function, class and
+    method of the JAX package exists in the port's namesake, but for the
+    decided exceptions above (the port's added device= parameters are
+    extra, never missing). Before F8: socs_image(matmul_precision=),
+    socs_image_nrms_bound(polarization=, apodize=), resolve_engine(allowed=),
+    StageTimer(log=), trace, annotate and dense_source_points."""
+    assert _sweep() == SWEEP_EXCEPTIONS
+
+
+def test_f8_socs_and_engine_arguments():
+    """socs_image takes matmul_precision ('highest' only, the same image);
+    socs_image_nrms_bound takes polarization= and apodize= (the vector
+    trace, JAX's value for the same kernels) and without config= reports
+    the sup bound instead of raising; resolve_engine takes allowed= as
+    JAX's does."""
+    from lithographysimulator_tpu.ops import abbe as ja
+    from lithographysimulator_tpu.ops import hopkins as jh
+    from lithographysimulator_tpu_torch.interop import socs_from_numpy
+    from lithographysimulator_tpu_torch.ops import hopkins as ph
+
+    spec = np.array(jt.spectrum_fft(jt.demo_bars(CFG).geometry, CFG))
+    pup = np.array(jt.pupil_function(np.zeros(1), CFG))
+    js = jt.tcc_eigensystem(pup, SRC, CFG, rank=8)
+    ps = socs_from_numpy(np.asarray(js.kernels), np.asarray(js.eigenvalues),
+                         device="cpu")
+    tspec, tpup = torch.as_tensor(spec), torch.as_tensor(pup)
+    img = ph.socs_image(tspec, ps, PCFG)
+    np.testing.assert_array_equal(
+        ph.socs_image(tspec, ps, PCFG, matmul_precision="highest").numpy(),
+        img.numpy())
+    with pytest.raises(ValueError, match="highest"):
+        ph.socs_image(tspec, ps, PCFG, matmul_precision="default")
+    jimg = np.asarray(jh.socs_image(spec, js, CFG))
+    for pol, apodize in (("unpolarized", True), ("x", False)):
+        ref = jh.socs_image_nrms_bound(js, spec, jimg, pupil=pup,
+                                       source_map=SRC, polarization=pol,
+                                       apodize=apodize, config=CFG)
+        ours = ph.socs_image_nrms_bound(ps, tspec, img, pupil=tpup,
+                                        source_map=SRC, polarization=pol,
+                                        apodize=apodize, config=PCFG)
+        assert abs(ours - ref) <= 1e-5 * abs(ref)
+    sup = ph.socs_image_nrms_bound(
+        ps, tspec, img, trace=ph.tcc_total_trace(tpup, SRC))
+    no_config = ph.socs_image_nrms_bound(ps, tspec, img, pupil=tpup,
+                                         source_map=SRC)
+    assert no_config == sup
+    assert no_config >= jh.socs_image_nrms_bound(js, spec, jimg, pupil=pup,
+                                                 source_map=SRC)
+    for engine, allowed in (("auto", ("fft", "matmul")), ("int8", ("fft",))):
+        if engine == "auto":
+            assert pa.resolve_engine(engine, device="cuda",
+                                     allowed=allowed) == "matmul"
+            assert pa.resolve_engine(engine, device="cpu",
+                                     allowed=allowed) == "fft"
+            continue
+        for call in (lambda: pa.resolve_engine(engine, device="cpu",
+                                               allowed=allowed),
+                     lambda: ja.resolve_engine(engine, allowed=allowed)):
+            with pytest.raises(ValueError, match="allowed"):
+                call()
+
+
+def test_f8_profiling_helpers(tmp_path, caplog):
+    """utils re-exports the JAX package's names (its complex-transfer
+    helpers excepted); trace writes a profiler trace of its block,
+    annotate names a function's range in it, and StageTimer(log=True)
+    logs each stage."""
+    import logging
+
+    import lithographysimulator_tpu.utils as ju
+    import lithographysimulator_tpu_torch.utils as pu
+
+    names = {n for n in dir(ju) if not n.startswith("_")
+             and not hasattr(getattr(ju, n), "__path__")}
+    assert names - {"to_device_complex", "to_host_complex"} <= set(dir(pu))
+
+    @pu.annotate("litho_stage")
+    def double(x):
+        return 2 * x
+
+    assert double.__name__ == "double"
+    with pu.trace(tmp_path / "trace"):
+        out = double(torch.ones(4))
+    assert float(out.sum()) == 8.0
+    assert "litho_stage" in (tmp_path / "trace" / "trace.json").read_text()
+    timer = pu.StageTimer("cpu", log=True)
+    with caplog.at_level(logging.INFO, logger="lithographysimulator_tpu_torch"):
+        with timer.stage("spectrum"):
+            pass
+    assert "stage spectrum" in caplog.text
+    assert set(timer.report()) == {"spectrum"}

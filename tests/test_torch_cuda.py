@@ -350,3 +350,55 @@ def test_tiled_chip_runs_on_the_kernels():
     stream = lt.tiled_socs_image_stream(lt.array_window_fn(chip, 128), 512,
                                         socs, cfg, halo=24)
     assert float((stream - img).abs().max()) <= 1e-6 * float(img.max())
+
+
+@pytest.mark.cuda
+def test_sharded_exact_on_a_repeated_card_mesh():
+    """parallel/abbe_sharded.py on a 4-entry mesh of cuda:0 at 256^2 (the
+    windowed int8 path): the sharded image equals the single-device one to
+    1e-6 and each shard launched its kernels (one launch of each kernel a
+    chunk of 4)."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch import parallel
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    _cuda()
+    cfg = lt.OpticsConfig(pixel_number=256)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    res = lt.simulate(lt.demo_bars(cfg, device="cuda"), src, device="cuda")
+    mesh = parallel.source_mesh(devices=["cuda:0"] * 4)
+    shifts, weights, _ = parallel.padded_source_arrays(src, 4 * 4)
+    ik.reset_launch_counts()
+    img = parallel.abbe_image_sharded(res.spectrum, res.pupil, shifts, weights,
+                                      cfg, mesh)
+    torch.cuda.synchronize()
+    assert all(v == len(shifts) // 4 for v in ik.LAUNCHES.values())
+    assert _nrms(img.cpu(), res.image.cpu()) < TOL
+
+
+@pytest.mark.cuda
+def test_every_kernel_launches_on_each_visible_card():
+    """F9: the kernels' raised shared-memory limit is set for each device,
+    so a process that launches on cuda:0 and then on cuda:1 (and on) runs
+    every kernel on each card and matches the plain versions. Skips below
+    two cards."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        args, window, rng = _operands(ik, dev, 2, 328, 264)
+        _assert_same_limbs(ik.window_product_limbs(*window), args[:2])
+        yr, yi = ik.row_limb_gemm(*args)
+        pr, pi = ik.row_limb_gemm_plain(*args)
+        assert _nrms(torch.complex(yr, yi).cpu(), torch.complex(pr, pi).cpu()) < TOL
+        kp = args[2].shape[-1]
+        y = ik.row_requantize(pr, pi, kp)
+        _assert_same_limbs(y, ik.row_requantize_plain(pr, pi, kp))
+        weights = torch.as_tensor(rng.random(2).astype(np.float32), device=dev)
+        img = ik.column_intensity_int8(*y, args[2], args[3], weights)
+        ref = ik.column_intensity_int8_plain(*y, args[2], args[3], weights)
+        assert img.device == dev
+        assert _nrms(img.cpu(), ref.cpu()) < TOL

@@ -237,18 +237,36 @@ def test_optimize_socs_alternating_matches_jax(setup):
 
 
 def test_mesh_is_refused(setup):
+    """mesh= is no longer refused: each of the four entry points that take
+    it gives the mesh=None result on a 2-entry CPU mesh (the source points
+    split over it, parallel/abbe_sharded.py), the loss within 1e-6
+    relative, for the mask alone and with the source logits."""
+    from lithographysimulator_tpu_torch.parallel import source_mesh
+
     shifts, weights, _, start, target = setup
-    _, pp = _problems()
-    params = po.init_params(pp, start, device="cpu")
-    mesh = object()
-    for call in (lambda: po.forward(params, ABERR, shifts, weights, pp, mesh),
-                 lambda: po.loss_fn(params, target, ABERR, shifts, weights,
-                                    pp, mesh),
-                 lambda: po.make_train_step(pp, torch.optim.SGD, mesh),
-                 lambda: po.optimize(pp, target, start, ABERR, shifts, weights,
-                                     steps=1, mesh=mesh, device="cpu")):
-        with pytest.raises(NotImplementedError, match="Multi-device"):
-            call()
+    mesh = source_mesh(devices=["cpu"] * 2)
+    for _, pp in (_problems(), _problems(optimize_source=True)):
+        w0 = np.maximum(weights, 1e-3)
+        params = po.init_params(pp, start, w0, device="cpu")
+        pairs = [[po.forward(params, ABERR, shifts, weights, pp, m)
+                  for m in (None, mesh)],
+                 [po.loss_fn(params, target, ABERR, shifts, weights, pp, m)
+                  for m in (None, mesh)],
+                 [po.make_train_step(pp, functools.partial(
+                     torch.optim.SGD, lr=0.1), m)(
+                         params, None, target, ABERR, shifts, weights)[2]
+                  for m in (None, mesh)],
+                 [torch.as_tensor(po.optimize(
+                     pp, target, start, ABERR, shifts, weights, steps=2,
+                     source_weights_init=w0, mesh=m, device="cpu")[1])
+                  for m in (None, mesh)]]
+        image, sharded = pairs[0]
+        np.testing.assert_allclose(sharded.detach().numpy(),
+                                   image.detach().numpy(), rtol=0,
+                                   atol=1e-6 * float(image.abs().max()))
+        for ref, ours in pairs[1:]:
+            np.testing.assert_allclose(ours.detach().numpy(),
+                                       ref.detach().numpy(), rtol=1e-6)
 
 
 def test_make_train_step_with_sgd_matches_jax(setup):

@@ -211,8 +211,11 @@ def test_nrms_bound_matches_jax_where_fft_size_le_2n(demo):
     assert _rel(ph.socs_image_nrms_bound(ps, _t(spec), _t(img / w), pupil=_t(pup),
                                          source_map=src, config=pcfg,
                                          total_weight=w), ours) < 1e-5
-    with pytest.raises(ValueError, match="config"):
-        ph.socs_image_nrms_bound(ps, _t(spec), _t(img), pupil=_t(pup), source_map=src)
+    # without config= (F8): the sup bound of the trace, not an error
+    sup = ph.socs_image_nrms_bound(ps, _t(spec), _t(img), trace=trace)
+    assert _rel(ph.socs_image_nrms_bound(ps, _t(spec), _t(img), pupil=_t(pup),
+                                         source_map=src), sup) < 1e-5
+    assert sup >= ours
     with pytest.raises(ValueError, match="trace"):
         ph.socs_image_nrms_bound(ps, _t(spec), _t(img))
 

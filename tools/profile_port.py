@@ -6,6 +6,7 @@ on one CUDA card, from torch.profiler. Run from the repository root:
     PYTHONPATH=. python3 tools/profile_port.py --stochastic
     PYTHONPATH=. python3 tools/profile_port.py --tiled
     PYTHONPATH=. python3 tools/profile_port.py --optimize
+    PYTHONPATH=. python3 tools/profile_port.py --parallel
 
 1. 1024^2 exact Abbe (lines/spaces 64/128 px, quasar sigma 0.4/0.8, as in
    chip_smoke.py phase 4): the first ``chunks`` chunks of 4 source points
@@ -54,6 +55,17 @@ is the whole kernel, so these steps gather nothing), and reports the host
 gap a step (untraced wall minus device time); and it times the pupil
 an exact step forms with the Zernike basis uploaded afresh, as before it
 was cached per device, and cached (in turns).
+
+With --parallel it traces chip_smoke.py phase 42's run instead: the
+1024^2 exact image of all 49,400 points through abbe_image_sharded on a
+4-entry mesh of cuda:0 (int8), and then runs it once more shard by shard:
+for each shard the host time inside its call, its device time (CUDA events
+around it on the stream) and the device's idle time before it (the previous
+shard's end event to this one's start event), and the host syncs inside
+the shards (torch.cuda.set_sync_debug_mode('warn'): each synchronizing
+call by file and line, with its count). A shard whose host time is about
+the device time of the shard before it waited for the device: on distinct
+cards that wait would serialize the shards.
 
 Each run is traced after one untraced warm-up run and one untraced timed
 run. For each it prints the untraced and the traced wall clock (host clock
@@ -176,6 +188,9 @@ def main() -> int:
     ap.add_argument("--optimize", action="store_true",
                     help="trace an SMO mask step and a full-chip OPC tile "
                          "step instead of the imaging paths")
+    ap.add_argument("--parallel", action="store_true",
+                    help="trace the sharded exact image over a 4-entry "
+                         "cuda:0 mesh and time it shard by shard")
     args = ap.parse_args()
 
     import torch
@@ -211,6 +226,10 @@ def main() -> int:
         return 0
     if args.optimize:
         optimize_paths(torch, lt, cfg, mask, pupil, src, results)
+        print(json.dumps(results))
+        return 0
+    if args.parallel:
+        parallel_path(torch, lt, cfg, spectrum, pupil, src, results)
         print(json.dumps(results))
         return 0
     for engine in ("int8", "matmul"):
@@ -465,6 +484,80 @@ def optimize_paths(torch, lt, cfg, mask, pupil, src, results) -> None:
     print(f"  {n}^2 pupil of 10 coefficients, wall a call (median of 4 runs "
           f"of 10, in turns): {med}; samples {times}", flush=True)
     results["pupil_basis_ms"] = {"median": med, "samples": times}
+
+
+
+def parallel_path(torch, lt, cfg, spectrum, pupil, src, results) -> None:
+    """The --parallel trace: phase 42's sharded exact image, then shard by
+    shard (see the module docstring)."""
+    import warnings
+
+    from lithographysimulator_tpu_torch import parallel
+    from lithographysimulator_tpu_torch.parallel import abbe_sharded
+
+    entries = 4
+    mesh = parallel.source_mesh(devices=["cuda:0"] * entries)
+    shifts, weights, live = parallel.padded_source_arrays(src, entries * 4)
+
+    def run():
+        return parallel.abbe_image_sharded(spectrum, pupil, shifts, weights,
+                                           cfg, mesh)
+
+    r = trace(torch, run)
+    show(f"1024^2 exact, abbe_image_sharded over cuda:0 x {entries}, {live} "
+         f"points ({len(shifts)} padded)", r, len(shifts) // 4)
+    print(f"  untraced: {live / r['untraced_wall_ms'] * 1e3:.1f} points/s",
+          flush=True)
+    shards = []
+    inner = abbe_sharded.accumulate_intensity
+
+    def timed_shard(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(*a, **kw)
+        end.record()
+        shards.append((1e3 * (time.perf_counter() - t0), start, end))
+        return out
+
+    abbe_sharded.accumulate_intensity = timed_shard
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        abbe_sharded.accumulate_intensity = inner
+    rows = []
+    for i, (host, start, end) in enumerate(shards):
+        idle = shards[i - 1][2].elapsed_time(start) if i else 0.0
+        rows.append({"host_ms": host, "device_ms": start.elapsed_time(end),
+                     "device_idle_before_ms": idle})
+    syncs = defaultdict(int)
+    for w in caught:
+        syncs[f"{w.filename.split('/lithographysimulator_tpu_torch/')[-1]}:"
+              f"{w.lineno}: {str(w.message)[:80]}"] += 1
+    print(f"  shard by shard (sync debug mode on, wall {wall:.2f} ms):",
+          flush=True)
+    for i, row in enumerate(rows):
+        print(f"    shard {i}: host {row['host_ms']:.2f} ms, device "
+              f"{row['device_ms']:.2f} ms, device idle before it "
+              f"{row['device_idle_before_ms']:.3f} ms")
+    print(f"  host syncs in the sharded call ({sum(syncs.values())}):")
+    for where, count in sorted(syncs.items(), key=lambda kv: -kv[1]):
+        print(f"    {count:6d}x  {where}")
+    r["shards"] = rows
+    r["shard_wall_ms"] = wall
+    r["host_syncs"] = dict(syncs)
+    results["parallel_exact"] = r
 
 
 if __name__ == "__main__":
