@@ -293,9 +293,33 @@ time, memory peak and launches, and fails if it launched no kernel:
     max|g| of mesh=None; then dryrun_multichip(4), the seven patterns at
     64^2; the summed launches of phases 42-46 and device_count.
 
-Run time on one H100 is about 7 minutes, most of it phase 4's int8 run,
+The production flow (examples/production_flow_torch.py: OPC, MRC repair,
+ORC, the FEM, the dose map, the stochastic ensemble, printed contours to
+GDS), its stages fed one into the next on the card; each phase prints its
+wall time, memory peak and launches, and fails if it launched no kernel:
+
+47. run_flow(4096, 1024, tmp, 'cuda'): 5 x 5 tiles of 1024^2 at the
+    flow's 16 px halo, 10,404 contacts, rank 48; each stage's wall time
+    (the device synchronized); every marker line present once and every
+    number in it finite; the written GDS read back (io.gdsii.read_gds) and
+    re-rasterized (io.contours.rasterize_loops) equal to the developed
+    profile bit for bit; the ORC IoU after OPC at least that of the
+    uncorrected layout imaged the same way;
+48. the flow's stages called one by one at the JAX example's size (128^2
+    chip, 64^2 tiles) on the card and on the CPU: the corrected masks
+    equal, or each differing pixel's continuous CPU value within 1e-3 of
+    the 0.5 threshold (listed); ORC, FEM and dose-map numbers to the
+    tolerances written at TOL_FLOW_* (a few one-pixel flips: the card
+    images on int8 with its own generator's probes); the stochastic
+    ensemble in distribution (mean CD within 5 sampling errors, LER and
+    LWR within 10%, the defect rates within 5 binomial errors); then every
+    kernel launched in phases 47-48, window_product_limbs as often as
+    row_limb_gemm.
+
+Run time on one H100 is about 8 minutes, most of it phase 4's int8 run,
 phase 5's host oracle, phase 8's exact image, phases 13 and 15's exact
-images, phase 20's fits and film slabs, and phases 27-29's full chips.
+images, phase 20's fits and film slabs, phases 27-29's full chips and
+phase 47's flow.
 
 Kernel, plain and library times are device times: medians of 5 CUDA-event
 samples of one CUDA-graph replay of 10 back-to-back calls each, after a
@@ -315,7 +339,8 @@ kernel with its launches, error, times and bound (launches on phases 3-5,
 socs_launches on phases 8-11, vector_launches on phases 13-16,
 m3d_launches on phases 18-20, resist_launches on phases 22-25,
 tiled_launches on phases 27-29, optimize_launches on phases 31-34,
-serve_launches on phases 36-40 and parallel_launches on phases 42-46; ms,
+serve_launches on phases 36-40, parallel_launches on phases 42-46 and
+flow_launches on phases 47-48; ms,
 library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
 and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 """
@@ -323,6 +348,7 @@ and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import json
 import re
 import subprocess
@@ -396,6 +422,30 @@ JOB_BIG_N = 1024  # their chip
 TOL_LAYOUT = 1e-6  # a layout or served image against the array path's
 PARALLEL_ENTRIES = 4  # phases 42-46: a mesh of MESH_ENTRY x 4
 MESH_ENTRY = "cuda:0"
+FLOW_BIG_N = 4096  # phase 47's chip: 5 x 5 tiles of 1024^2 at the flow's halo
+FLOW_SMALL = (128, 64)  # phase 48: the JAX example's own chip and tile
+FLOW_HALO = 16  # examples/production_flow_torch.py's halo, rank and trials
+FLOW_RANK = 48
+FLOW_TRIALS = 8
+FLOW_MARKERS = ("MRC:", "ORC:", "FEM:", "dose map", "stochastic:", "wrote")
+# Phase 48, the card against the CPU. The card images on the int8 kernels
+# (the CPU on fft) with builds from the card's own generator (other probes
+# than the CPU's), so the two agree in the class of a few one-pixel flips
+# of the develops, not bit for bit: a pixel where the corrected masks differ
+# must have the CPU's continuous OPC value within TOL_FLOW_THRESHOLD of 0.5,
+# and the continuous masks lie within TOL_FLOW_OPC (OPC moves them by up to
+# about 0.34 at this size, and leaves every pixel on its side of 0.5);
+# IoU within TOL_FLOW_IOU (one 25 nm pixel is 4.6e-4 of the 128^2 chip's);
+# max |EPE| within one pixel; DOF, exposure latitude and ORC pass equal; FEM
+# CDs (the mean over about 108 features: a one-pixel flip of one feature is
+# 0.23 nm) and CDU within TOL_FLOW_CD_NM; mean NILS and the dose sensitivity
+# within TOL_FLOW_REL relative; the dose map within TOL_FLOW_DOSE.
+TOL_FLOW_THRESHOLD = 1e-3
+TOL_FLOW_OPC = 1e-2
+TOL_FLOW_IOU = 1e-3
+TOL_FLOW_CD_NM = 1.0
+TOL_FLOW_REL = 1e-2
+TOL_FLOW_DOSE = 1e-2
 
 
 def log(msg: str) -> None:
@@ -3100,6 +3150,189 @@ def phase_sharded_smo_dryrun(torch, lt, ik, launches: dict) -> None:
     _phase_end(torch, ik, 46, t0, launches, True)
 
 
+def _flow_module():
+    """examples/production_flow_torch.py, loaded from its file."""
+    path = REPO / "examples" / "production_flow_torch.py"
+    spec = importlib.util.spec_from_file_location("production_flow_torch", path)
+    flow = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flow)
+    return flow
+
+
+def _flow_lines(text: str) -> dict:
+    """Each marker's line of the flow's output, with its numbers: every
+    marker present once, every number finite."""
+    found = {}
+    for marker in FLOW_MARKERS:
+        lines = [ln for ln in text.splitlines() if ln.startswith(marker)]
+        if len(lines) != 1:
+            raise AssertionError(f"flow output has {len(lines)} '{marker}' "
+                                 f"lines:\n{text}")
+        found[marker] = lines[0]
+    numbers = [float(v) for marker in ("MRC:", "ORC:", "FEM:", "stochastic:")
+               for v in json.loads(found[marker].split(":", 1)[1]).values()
+               if isinstance(v, (int, float))]
+    numbers += [float(v) for v in re.findall(r"-?\d+\.\d+", found["dose map"])]
+    if not numbers or not np.isfinite(numbers).all():
+        raise AssertionError(f"flow numbers not finite: {numbers}")
+    log(f"  markers {', '.join(FLOW_MARKERS)} present; {len(numbers)} numbers, "
+        "all finite")
+    return found
+
+
+def phase_flow(torch, lt, ik, launches: dict) -> None:
+    """Phase 47: examples/production_flow_torch.run_flow at full width."""
+    import contextlib
+    import io
+    import tempfile
+
+    from lithographysimulator_tpu_torch.io.contours import rasterize_loops
+    from lithographysimulator_tpu_torch.io.gdsii import read_gds
+    from lithographysimulator_tpu_torch.ops.tiled import tile_layout
+
+    flow = _flow_module()
+    tiles, step = tile_layout(FLOW_BIG_N, TILE_N, FLOW_HALO)
+    contacts = len(range(16, FLOW_BIG_N - 16, 40)) ** 2
+    log(f"[phase 47] the production flow at {FLOW_BIG_N}^2: {tiles} x {tiles} "
+        f"tiles of {TILE_N}^2 (halo {FLOW_HALO}, step {step}), {contacts:,} "
+        "contacts")
+    t0 = _phase_start(torch, ik)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = flow.run_flow(FLOW_BIG_N, TILE_N, tmp, DEVICE)
+        for line in out.getvalue().splitlines():
+            log(f"  | {line}")
+        log(f"  run_flow's int8 launches: {dict(ik.LAUNCHES)}")
+        for stage, seconds in res["stage_s"].items():
+            log(f"  stage {stage}: {seconds:.3f} s")
+        log(f"  run_flow: {sum(res['stage_s'].values()):.3f} s")
+        _flow_lines(out.getvalue())
+        cfg, layout, source, resist, rules = flow.design(FLOW_BIG_N, TILE_N,
+                                                         DEVICE)
+        t1 = time.perf_counter()
+        loops = [p.xy_nm for p in read_gds(res["gds"]).flatten("CONTOUR")
+                 if p.layer == 1]
+        raster = rasterize_loops(loops, pixel_size=cfg.pixel_size,
+                                 n=FLOW_BIG_N)
+        profile = res["profile"].cpu().numpy()
+        differ = int((raster != profile).sum())
+        log(f"  GDS round trip: {len(loops):,} loops read back and rasterized "
+            f"in {time.perf_counter() - t1:.3f} s; {int(profile.sum()):,} "
+            f"printed pixels; {differ} pixels differ from the developed profile")
+        if differ or not profile.any():
+            raise AssertionError("the printed contours' GDS does not "
+                                 "re-rasterize to the developed profile")
+    before, t = _timed(torch, lambda: lt.orc_check(
+        layout, layout, cfg, source, resist=resist, rank=FLOW_RANK,
+        halo=FLOW_HALO, mrc_rules=rules, epe_spec_nm=90.0, device=DEVICE))
+    iou_before = before["fidelity"]["iou"]
+    iou_after = res["orc"]["fidelity"]["iou"]
+    log(f"  ORC IoU: uncorrected layout {iou_before:.6f} ({t:.3f} s), after "
+        f"OPC and MRC {iou_after:.6f}")
+    if not iou_after >= iou_before:
+        raise AssertionError("OPC lowered the ORC IoU")
+    _phase_end(torch, ik, 47, t0, launches, True)
+
+
+def _flow_stages(torch, lt, flow, device) -> dict:
+    """examples/production_flow_torch.run_flow's calls with its parameters,
+    one by one at the JAX example's size, the continuous OPC mask kept."""
+    from lithographysimulator_tpu_torch.optimize import opc_correct_tiled
+
+    cfg, layout, source, resist, rules = flow.design(*FLOW_SMALL, device)
+    kw = dict(rank=FLOW_RANK, halo=FLOW_HALO, device=device)
+    continuous = opc_correct_tiled(layout, cfg, source, resist=resist,
+                                   steps=12, learning_rate=0.2, **kw)
+    corrected = lt.mrc_clean(continuous, cfg, rules)
+    mask = torch.as_tensor(corrected, device=device)
+    deck = lt.orc_check(mask, layout, cfg, source, resist=resist,
+                        mrc_rules=rules, epe_spec_nm=90.0, **kw)
+    fem = lt.tiled_fem(mask, cfg, source, defocus_nm=[-80.0, 0.0, 80.0],
+                       doses=[0.85, 1.0, 1.15], resist=resist, cd_stat="mean",
+                       **kw)
+    sto = lt.tiled_stochastic(
+        mask, cfg, source, model=lt.StochasticResist(
+            dose_photons_per_nm2=20.0, diffusion_nm=8.0, threshold=0.3),
+        trials=FLOW_TRIALS, **kw)
+    return {"cfg": cfg, "continuous": continuous, "corrected": corrected,
+            "orc": deck, "fem": fem, "dose_map": lt.dose_correction_map(fem),
+            "stochastic": sto}
+
+
+def _near(tag: str, ours: float, ref: float, tol: float) -> None:
+    ours, ref = float(ours), float(ref)
+    ok = np.isfinite(ours) and abs(ours - ref) <= tol
+    log(f"  {tag}: card {ours:.9g}, CPU {ref:.9g}, |diff| {abs(ours - ref):.3e} "
+        f"(tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: card {ours} against CPU {ref}")
+
+
+def phase_flow_cpu(torch, lt, ik, launches: dict) -> None:
+    """Phase 48: the flow's stages on the card against the port on the CPU."""
+    flow = _flow_module()
+    log(f"[phase 48] the flow's stages at {FLOW_SMALL[0]}^2 ({FLOW_SMALL[1]}^2 "
+        "tiles) on the card and on the CPU")
+    ref, t_cpu = _timed(torch, lambda: _flow_stages(torch, lt, flow, "cpu"))
+    t0 = _phase_start(torch, ik)
+    ours, t_card = _timed(torch, lambda: _flow_stages(torch, lt, flow, DEVICE))
+    log(f"  stages: card {t_card:.3f} s, CPU {t_cpu:.3f} s")
+    cont_card, cont_cpu = ours["continuous"], ref["continuous"]
+    check("continuous OPC masks, max |card - CPU|",
+          float(np.abs(cont_card - cont_cpu).max()), TOL_FLOW_OPC)
+    log(f"  OPC moved the CPU's continuous mask by up to "
+        f"{float(np.abs(cont_cpu - flow.design(*FLOW_SMALL, 'cpu')[1].numpy()).max()):.4f}; "
+        f"its pixel nearest the threshold lies "
+        f"{float(np.abs(cont_cpu - 0.5).min()):.4f} from 0.5")
+    differ = np.argwhere(ours["corrected"] != ref["corrected"])
+    log(f"  corrected masks: {len(differ)} of {cont_cpu.size} pixels differ")
+    for i, j in differ:
+        log(f"    ({i}, {j}): card {ours['corrected'][i, j]:.0f}, CPU "
+            f"{ref['corrected'][i, j]:.0f}, CPU continuous "
+            f"{cont_cpu[i, j]:.7f}, card continuous {cont_card[i, j]:.7f}")
+    if any(abs(cont_cpu[i, j] - 0.5) > TOL_FLOW_THRESHOLD for i, j in differ):
+        raise AssertionError("the card's corrected mask differs from the "
+                             "CPU's away from the 0.5 threshold")
+    px = ours["cfg"].pixel_size
+    a, b = ours["orc"], ref["orc"]
+    if a["pass_"] != b["pass_"]:
+        raise AssertionError(f"ORC pass: card {a['pass_']}, CPU {b['pass_']}")
+    _near("ORC IoU", a["fidelity"]["iou"], b["fidelity"]["iou"], TOL_FLOW_IOU)
+    _near("ORC mean NILS (relative)", a["nils"]["mean_nils"]
+          / b["nils"]["mean_nils"], 1.0, TOL_FLOW_REL)
+    _near("ORC max |EPE| nm", a["epe"]["max_abs_epe_nm"],
+          b["epe"]["max_abs_epe_nm"], px)
+    a, b = ours["fem"], ref["fem"]
+    _near("FEM DOF nm", a["depth_of_focus_nm"], b["depth_of_focus_nm"], 0.0)
+    _near("FEM exposure latitude", a["exposure_latitude"],
+          b["exposure_latitude"], 1e-12)
+    _near("FEM CD matrix, max |diff| nm", float(np.abs(
+        a["cd_nm"] - b["cd_nm"]).max()), 0.0, TOL_FLOW_CD_NM)
+    _near("FEM CDU 3 sigma nm", a["cdu"]["cdu_3sigma_nm"],
+          b["cdu"]["cdu_3sigma_nm"], TOL_FLOW_CD_NM)
+    a, b = ours["dose_map"], ref["dose_map"]
+    _near("dose map sensitivity (relative)", a["sensitivity_nm_per_dose"]
+          / b["sensitivity_nm_per_dose"], 1.0, TOL_FLOW_REL)
+    _near("dose map max residual nm", a["predicted_residual_nm"],
+          b["predicted_residual_nm"], TOL_FLOW_CD_NM)
+    _near("dose map, max |diff|", float(np.abs(
+        a["dose_map"] - b["dose_map"]).max()), 0.0, TOL_FLOW_DOSE)
+    # the ensembles in distribution (per-trial generators: ROADMAP D2), as
+    # tests/test_torch_metrology.py:232-247 holds tiled_stochastic
+    a, b = ours["stochastic"], ref["stochastic"]
+    sigma = float(np.hypot(a["lcdu_nm"], b["lcdu_nm"])) / 3.0 / np.sqrt(FLOW_TRIALS)
+    _near("stochastic mean CD nm (5 sampling errors)", a["mean_cd_nm"],
+          b["mean_cd_nm"], 5.0 * sigma + 1e-3)
+    for key in ("ler_nm", "lwr_nm"):
+        _near(f"stochastic {key} (relative)", a[key] / b[key], 1.0, 0.1)
+    for key in ("break_rate", "bridge_rate"):
+        p = 0.5 * (a[key] + b[key])
+        _near(f"stochastic {key} (5 binomial errors)", a[key], b[key],
+              5.0 * float(np.sqrt(2.0 * p * (1.0 - p) / FLOW_TRIALS)))
+    _phase_end(torch, ik, 48, t0, launches, True)
+
+
 def _fits_launched(fit_launches) -> None:
     """Phase 21's check of the fits alone: each int8 fit launched every
     kernel, one window_product_limbs a row_limb_gemm (no matmul fallback)."""
@@ -3263,6 +3496,18 @@ def main() -> int:
                              f"or window_product_limbs != row_limb_gemm: "
                              f"{parallel_launches}")
 
+    flow_launches = {}  # phases 47-48, each counted and checked apart
+    phase_flow(torch, lt, ik, flow_launches)
+    phase_flow_cpu(torch, lt, ik, flow_launches)
+    log("[phase 48 done]")
+    log(f"  launches in phases 47-48: {flow_launches}")
+    missing = [k for k in KERNELS if flow_launches.get(k, 0) <= 0]
+    if missing or (flow_launches["window_product_limbs"]
+                   != flow_launches["row_limb_gemm"]):
+        raise AssertionError(f"phases 47-48: kernels never launched {missing}, "
+                             f"or window_product_limbs != row_limb_gemm: "
+                             f"{flow_launches}")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CU_SOURCE, "replaces": KERNELS[k],
          "launches": launches[k], **stats[k],
@@ -3274,7 +3519,8 @@ def main() -> int:
          "tiled_launches": tiled_launches[k],
          "optimize_launches": optimize_launches[k],
          "serve_launches": serve_launches[k],
-         "parallel_launches": parallel_launches[k]}
+         "parallel_launches": parallel_launches[k],
+         "flow_launches": flow_launches[k]}
         for k in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

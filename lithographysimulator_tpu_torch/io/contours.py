@@ -130,11 +130,29 @@ def rasterize_loops(loops, *, pixel_size: float, n: int,
     back out (the GDS XOR convention). The exact inverse of
     :func:`trace_contours` under centre sampling. (:func:`.native.rasterize`
     OR-combines polygons, which is right for layout input but loses
-    holes.)"""
+    holes.)
+
+    Each loop is rasterized over the pixels of its bounding box only, so a
+    full chip's ten thousand contours cost their own area, not ten
+    thousand whole grids. A window's pixel centres are the whole grid's,
+    up to the rounding of its origin, which cannot move a centre across
+    a loop on the pixel lattice (what :func:`trace_contours` gives)."""
     grid = np.zeros((n, n), bool)
+    ox, oy = origin
     for loop in loops:
-        grid ^= rasterize([loop], origin=origin, pixel_size=pixel_size,
-                          n=n) > 0.5
+        v = np.asarray(loop, np.float64).reshape(-1, 2)
+        if len(v) < 3:
+            continue
+        j0, i0 = (max(0, int(np.floor((v[:, k].min() - o) / pixel_size)))
+                  for k, o in ((0, ox), (1, oy)))
+        j1, i1 = (min(n, int(np.ceil((v[:, k].max() - o) / pixel_size)))
+                  for k, o in ((0, ox), (1, oy)))
+        if j1 <= j0 or i1 <= i0:
+            continue
+        part = rasterize([v], origin=(ox + j0 * pixel_size,
+                                      oy + i0 * pixel_size),
+                         pixel_size=pixel_size, n=max(j1 - j0, i1 - i0))
+        grid[i0:i1, j0:j1] ^= part[:i1 - i0, :j1 - j0] > 0.5
     return grid.astype(np.float32)
 
 

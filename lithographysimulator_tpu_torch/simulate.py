@@ -119,9 +119,8 @@ def _exact_image(spectrum, aberrations, shifts, weights, config, *, device,
 
 
 @functools.lru_cache(maxsize=32)
-def _channel_rotation_cached(config: OpticsConfig, polarization=None,
-                             apodize: bool = True, chromatic=None,
-                             device: str = "cpu"):
+def _channel_rotation_cached(config: OpticsConfig, polarization,
+                             apodize: bool, chromatic, device: str):
     """Principal-channel rotation of the (config, polarization, spectrum)
     component stack, or None when compression would not shrink it. The
     channel Gram does not see phase-only aberrations, so the rotation at

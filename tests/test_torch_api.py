@@ -368,3 +368,46 @@ def test_f8_profiling_helpers(tmp_path, caplog):
             pass
     assert "stage spectrum" in caplog.text
     assert set(timer.report()) == {"spectrum"}
+
+
+def _device_defaults(obj) -> list:
+    """``(qualname, default)`` of each parameter named ``device`` (or
+    ``*_device``) of a function or method that has a default."""
+    import inspect
+
+    fn = inspect.unwrap(obj)
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return []
+    return [(fn.__qualname__, p.default) for p in params
+            if (p.name == "device" or p.name.endswith("_device"))
+            and p.default is not inspect.Parameter.empty]
+
+
+def test_no_function_of_the_port_defaults_to_the_cpu():
+    """Step 0's third fault class as a sweep: no function or method of any
+    port module, public or private, falls back to the CPU when no device
+    is given (a ``device`` default of 'cpu'). ``_channel_rotation_cached``
+    had one, unreached: every caller passed the device."""
+    import inspect
+    import pkgutil
+
+    found = []
+    for info in pkgutil.walk_packages(pt.__path__, pt.__name__ + "."):
+        if info.name.endswith(".__main__"):  # runs the CLI on import
+            continue
+        mod = importlib.import_module(info.name)
+        for obj in vars(mod).values():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            members = [obj]
+            if inspect.isclass(obj):
+                members += [m for m in vars(obj).values() if callable(m)]
+            for member in members:
+                for qualname, default in _device_defaults(member):
+                    if str(default) == "cpu" or (
+                            isinstance(default, torch.device)
+                            and default.type == "cpu"):
+                        found.append(f"{mod.__name__}.{qualname}")
+    assert found == []

@@ -132,3 +132,26 @@ def test_contours_to_gds_matches_jax(tmp_path):
     # a bare pixel size works in place of a config
     pcontours.contours_to_gds(tmp_path / "q.gds", m, 10.0, layer=7)
     assert (tmp_path / "q.gds").read_bytes() == ref.read_bytes()
+
+
+@pytest.mark.parametrize("kind", ["hole", "checkerboard", "full", "blobs1",
+                                  "blobs2"])
+@pytest.mark.parametrize("shift", [0, 5])
+def test_rasterize_loops_windows_equal_the_whole_grid(kind, shift):
+    """Each loop is rasterized over its bounding box only: the result
+    equals the XOR of every loop over the whole grid, also where the grid
+    (moved by ``shift`` pixels) cuts loops at its edges."""
+    from lithographysimulator_tpu_torch.io.native import rasterize
+
+    m = _raster(kind)
+    px, origin = 3.0, (5.0, -2.0)
+    loops = pcontours.trace_contours(m, pixel_size=px, origin=origin)
+    n = m.shape[0] - shift
+    moved = (origin[0] + shift * px, origin[1] + shift * px)
+    whole = np.zeros((n, n), bool)
+    for loop in loops:
+        whole ^= rasterize([loop], origin=moved, pixel_size=px, n=n) > 0.5
+    grid = pcontours.rasterize_loops(loops, pixel_size=px, n=n, origin=moved)
+    assert grid.dtype == np.float32
+    np.testing.assert_array_equal(grid > 0.5, whole)
+    np.testing.assert_array_equal(grid > 0.5, m[shift:, shift:] > 0.5)
