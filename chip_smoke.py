@@ -21,7 +21,11 @@ It exits 0 only if every phase passes; each fails hard on a miss:
    scales equal the plain versions' bit for bit (the count of differing
    limbs is printed); window_product_limbs reads windows of
    a tiled 2n x 2n array and an n x n one at odd columns, so its loads are
-   only 8-byte aligned; median kernel, plain and library times (CUDA
+   only 8-byte aligned; a line a shape names its launch plan (TMA or
+   per-thread loads, cluster size, rows a block); at each exact shape
+   every window also at its last valid start, and at the first shape
+   operands with odd row pitches (the per-thread loads), each bit for
+   bit; median kernel, plain and library times (CUDA
    events) beside the kernel's bound and its share of the bound;
 3. the 64^2 demo through simulate(device='cuda'): <= 2e-3 normalized RMS
    against tests/golden/demo_aerial_image_fft.npy and <= 1e-5 against the
@@ -43,7 +47,8 @@ The SOCS (Hopkins) path, its launches counted apart from phases 3-5:
    the contraction is the whole chirp (w = n) and window_product_limbs
    multiplies a batch of whole kernels by the spectrum (zero starts):
    (4, 1024, 1024) and (4, 2048, 2048), and the ragged (2, 328, 264) with
-   odd starts, 3-limb and 2-limb, <= 1e-6; times as in phase 2;
+   odd starts, 3-limb and 2-limb, <= 1e-6; the plan lines, the last
+   valid starts and the odd row pitches as in phase 2; times as in phase 2;
 8. the SOCS headline at 1024^2 (phase 4's mask and source, no
    aberrations): simulate(solver='socs', socs_rank=256) cold (build +
    apply), again on its cached kernels (apply) and with a new aberration
@@ -641,6 +646,46 @@ def check_same_limbs(name: str, diff: int, scales_k, scales_p) -> None:
     log(f"  {name} limbs and scales equal plain's bit for bit: ok")
 
 
+def log_window_plan(ik, tag: str, a, b, starts_np, w: int) -> dict:
+    """Logs window_product_limbs' launch plan for these operands (load path,
+    cluster size, rows a block) and how many window rows start at an odd
+    column (TMA boxes that start a column early)."""
+    plan = ik.window_product_limbs_plan(a, b, w)
+    odd = int((starts_np[:, 1] % 2).sum() + (starts_np[:, 3] % 2).sum())
+    log(f"  window_product_limbs {tag}: a {tuple(a.shape)}, b {tuple(b.shape)}, "
+        f"w={w}: {plan['path']} loads, cluster {plan['cluster']}, "
+        f"{plan['rows']} rows, {plan['threads']} threads, {plan['slots']} b "
+        f"slots and {plan['smem']} bytes a block; {odd} of "
+        f"{2 * len(starts_np)} window rows start at an odd column")
+    return plan
+
+
+def window_case(torch, ik, tag: str, a_np, b_np, starts_np, w: int,
+                path: str) -> float:
+    """window_product_limbs on one set of operands against its plain
+    version, bit for bit, with its plan logged, which must load by
+    ``path``; returns the kernel's time in ms."""
+    dev = torch.device("cuda")
+    starts_np = ik.check_window_starts(starts_np, w, a_np.shape, b_np.shape)
+    args = (torch.as_tensor(a_np, device=dev), torch.as_tensor(b_np, device=dev),
+            torch.as_tensor(starts_np, device=dev), w)
+    plan = log_window_plan(ik, tag, args[0], args[1], starts_np, w)
+    if plan["path"] != path:
+        raise AssertionError(f"window_product_limbs {tag}: {plan['path']} "
+                             f"loads, expected {path}")
+    xl, xs = ik.window_product_limbs(*args)
+    pl, ps = ik.window_product_limbs_plain(*args)
+    check_same_limbs(f"window_product_limbs {tag}", int((xl != pl).sum()), xs, ps)
+    return time_ms(torch, lambda: ik.window_product_limbs(*args))
+
+
+def odd_pitch(x: np.ndarray) -> np.ndarray:
+    """x with one more row and column (odd row pitches for even sides):
+    the operands window_product_limbs loads per thread."""
+    pad = ((0, 0),) * (x.ndim - 2) + ((0, 1), (0, 1))
+    return np.ascontiguousarray(np.pad(x, pad))
+
+
 def phase_kernels(torch, ik, phase: int, shapes) -> dict:
     """Phases 2 and 7: each kernel against its plain version at ``shapes``;
     returns the JSON fields measured at the first shape, 3-limb mode. Each
@@ -663,6 +708,15 @@ def phase_kernels(torch, ik, phase: int, shapes) -> dict:
         log(f"[phase {phase}] B={batch} n={n} w={w}, window starts "
             f"{starts_np[0].tolist()}{' (odd columns)' if w < n else ''}")
         # window_product_limbs: X's column limbs straight from the operands
+        log_window_plan(ik, "plan", a, b, starts_np, w)
+        if w < n:  # every window at its last valid start
+            last = np.tile([2 * n - w, 2 * n - w, n - w, n - w], (batch, 1))
+            window_case(torch, ik, "at the last valid starts", a_np, b_np, last,
+                        w, "tma")
+        if (batch, n, w) == shapes[0]:  # odd row pitches: per-thread loads
+            ms = window_case(torch, ik, "with odd row pitches", odd_pitch(a_np),
+                             odd_pitch(b_np), starts_np, w, "per-thread")
+            log(f"  window_product_limbs per-thread loads: {ms:.4f} ms")
         wargs = (a, b, starts, w)
         xl_k, xs_k = ik.window_product_limbs(*wargs)
         x_limbs, x_scales = ik.window_product_limbs_plain(*wargs)

@@ -73,12 +73,18 @@
 //     order and without atomics: the image is deterministic.
 // The two limb quantizers, row_requantize and window_product_limbs, are
 // bound by bytes (one read of their f32 or complex input, one write of 9
-// limb planes) and share one design: a thread splits 16 consecutive values
+// limb planes) and share the split: a thread splits 16 consecutive values
 // of a row (or column) held in registers, so each plane's limbs leave as
-// one 16-byte store per limb, and the three maxima (r, i, r+i) are taken
-// as the input is read (row_requantize reads it once; window_product_limbs
-// forms its products a second time, from L2, for the split). Their split
-// runs on full-rate adds only (see MAGIC and div_rn). No kernel
+// one 16-byte store per limb, on full-rate adds only (see MAGIC and
+// div_rn). row_requantize reads its rows once into registers and takes the
+// three maxima (r, i, r+i) as it reads. window_product_limbs must see a
+// whole column of products before it can split any of it, so it keeps the
+// products in shared memory: a block (or a cluster of up to 8 blocks
+// past about 290 rows, its maxima reduced through distributed shared
+// memory) owns a strip of 16 columns, loads each operand row of the strip
+// once (TMA boxes, or per-thread cp.async where a row pitch is not a
+// multiple of 16 bytes), forms the products and maxima as the rows arrive,
+// and splits from shared memory. No kernel
 // allocates device memory: the Python wrappers allocate every output; the
 // TMA maps are built on the host per launch and passed as kernel
 // parameters.
@@ -115,8 +121,21 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8;  // + barriers
 constexpr int SEG = 16;                    // values one quantizer thread splits
 constexpr int REQ_THREADS = 256;           // row_requantize: least block size
 constexpr int REQ_MAX_THREADS = 512;       // one thread per SEG of a row
-constexpr int WPL_COLS = 8;                // window_product_limbs: columns a block
-constexpr int WPL_MAX_THREADS = 512;
+// window_product_limbs (see its kernel for the design and the cluster rule)
+constexpr int WPL_COLS = 16;               // columns a strip: one 128-byte row
+constexpr int WPL_PITCH = WPL_COLS + 2;    // complex a shared row: a box that
+constexpr int WPL_ROW_BYTES = 8 * WPL_PITCH;  // starts a column early fits
+constexpr int WPL_BOX = 32;                // rows a load (TMA box, ring slot)
+constexpr int WPL_BOX_BYTES = WPL_BOX * WPL_ROW_BYTES;
+constexpr int WPL_MAX_THREADS = 288;       // a split task a thread at 18 segments
+constexpr int WPL_TARGET_BYTES = 84 * 1024;  // strip + b rows: 2 blocks an SM
+constexpr int WPL_LOAD_BYTES = 224 * 1024;   // strip + b ring at most
+constexpr int WPL_MAX_CLUSTER = 8;           // the portable cluster size
+constexpr int WPL_MAX_SLOTS = WPL_LOAD_BYTES / WPL_BOX_BYTES;
+// after the strip and the ring: slot barriers, the block's maxima, each
+// cluster block's maxima, the column scales
+constexpr int WPL_TAIL_BYTES =
+    8 * WPL_MAX_SLOTS + 4 * 3 * WPL_COLS * (WPL_MAX_CLUSTER + 2);
 
 // Dynamic shared memory a launch asks for; 0 means SMEM_BYTES. Tests set it
 // above the device limit to see a refused launch reported.
@@ -181,6 +200,56 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4), "r"(bar)
       : "memory");
+}
+
+// TMA: the box at coordinates {c0, c1, c2} of a 3-D `map` into shared
+// memory at dst, completion counted on barrier `bar` as tma_load.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// An asynchronous 8-byte copy from global to shared memory (cp.async).
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// One arrival on barrier `bar` once this thread's earlier cp.async copies
+// have landed (counted in the barrier's expected arrivals: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// The thread block cluster's barrier, split: arrive (release, or relaxed:
+// no memory ordering) and wait (acquire); every thread of every block of
+// the cluster takes part.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Stores v at p in the shared memory of block `rank` of this cluster.
+__device__ __forceinline__ void st_cluster(int* p, int rank, int v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(remote), "r"(v)
+               : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -688,12 +757,6 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
                      __fmaf_rn(a.x, b.y, __fmul_rn(a.y, b.x)));
 }
 
-// Pass-2 tasks of a window_product_limbs block: WPL_COLS columns times the
-// kp / SEG segments rounded up to groups of 4 (4 * WPL_COLS = a warp).
-__host__ __device__ __forceinline__ int wpl_tasks(int kp) {
-  return 4 * WPL_COLS * ((kp / SEG + 3) / 4);
-}
-
 // X_b[u, v] = a[ba, ar + u, ac + v] * b[br + u, bc + v] for u, v < w
 // (ba = b when a holds a batch, else 0; (ar, ac, br, bc) = starts[b]),
 // split per COLUMN v and stored transposed, as quantize_x(X):
@@ -702,88 +765,205 @@ __host__ __device__ __forceinline__ int wpl_tasks(int kp) {
 //   zero past w; x_scales (3, batch, w) f32.
 // Bound by bytes: the union of the windows read (8 bytes an element, once),
 // 9 * batch * w * kp limbs and 12 * batch * w scales written.
-// One block per (strip of WPL_COLS columns, b), with a thread for each of
-// the strip's (column, 16-row segment) tasks (wpl_tasks), up to
-// WPL_MAX_THREADS. Pass 1:
-// thread (column t % WPL_COLS, row lane t / WPL_COLS) forms the products of
-// its column's rows with 8-byte loads, eight neighbouring columns of one row
-// for every 8 lanes (exact-Abbe windows start at any column, so rows are
-// only 8-byte aligned), and keeps the three column maxima; the block reduces
-// them in shared memory. Pass 2 forms each task's 16 products again (from
-// L2: the block just read them), holds them in registers, splits them and
-// stores 16-byte limb words; the 4 lanes of one column in a quarter-warp
-// write 64 contiguous bytes. A window outside its operand (the callers
-// validate starts on the host) reads nothing and gets NaN scales, which
-// poison every product. grid (ceil(w / WPL_COLS), batch), block
-// min(wpl_tasks(kp), WPL_MAX_THREADS).
-__global__ void __launch_bounds__(WPL_MAX_THREADS)
-window_product_limbs_kernel(const float2* __restrict__ a,
+//
+// Design. A cluster of `ranks` blocks (blockIdx.x is the rank) owns a strip
+// of WPL_COLS = 16 columns of one window (blockIdx.y = b, blockIdx.z = the
+// strip): each operand row of the strip is one 128-byte span. Block `rank`
+// owns the 16-row segments [rank * spb, (rank + 1) * spb) of the kp rows
+// (spb = segs_per_block, even) and
+//   1. loads its rows of both windows into shared memory in boxes of
+//      WPL_BOX = 32 rows: a's rows into the strip buffer, b's into a ring of
+//      `slots` boxes. With TMA (3-D maps of 8-byte elements) one thread puts
+//      every box in flight at once, and each box's bytes complete on its
+//      slot's mbarrier. A TMA box must start on 16 bytes (the card faults
+//      with an illegal instruction on an odd column start), so where a
+//      window starts at an odd column its boxes are 18 columns wide and
+//      start a column early: rows of WPL_PITCH = 18 complex, the window
+//      one column in. On the per-thread path (a row pitch that is not a
+//      multiple of 16 bytes) every thread issues 8-byte cp.async copies and
+//      arrives on the same barrier when they land. Where the ring holds
+//      fewer slots than boxes (kp past 6,144), a slot is refilled after a
+//      block barrier;
+//   2. forms the products as the boxes arrive, thread t those of column
+//      t % 16 in rows t / 16, t / 16 + threads / 16, ... of each box, in
+//      place in the strip buffer, keeping its column's three maxima; rows
+//      past w become zeros. The operands are read once, and the products
+//      never leave the chip;
+//   3. reduces the maxima over the block (warp shuffles, shared atomics),
+//      stores them into every block of the cluster (distributed shared
+//      memory) and meets the cluster at one barrier, after which each block
+//      reduces the cluster's maxima from its own shared memory (no block
+//      reads a peer's, so none waits for its peers to leave); rank 0 writes
+//      the scales;
+//   4. splits its own segments from shared memory: a thread a (column,
+//      segment) task reads the 16 products of its column (a half-warp reads
+//      16 neighbouring complex of one row: no bank conflict) and stores
+//      each plane's 3 limbs as 16-byte words with store_limbs, the limbs bit
+//      for bit the plain version's.
+// A window outside its operand (the callers validate starts on the host)
+// reads nothing and gets NaN scales, which poison every product.
+// grid (ranks, batch, ceil(w / 16)), cluster (ranks, 1, 1),
+// threads = 16 * segs_per_block (a split task each) up to WPL_MAX_THREADS,
+// at most 72 registers a thread (3 blocks of 288 threads an SM where
+// shared memory allows: 256 rows a block and fewer). map_a and map_b
+// have 16-column boxes, wide_a and wide_b 18-column ones.
+// What bounds it on the H100 (PERF.md, PR 13): the two phases of a block,
+// loads then split, run one after the other; at (4, 1024, 1024) the loads
+// and products alone take 58% of the kernel's time and the split with its
+// stores alone 70%, each below the memory rate, and they overlap only
+// across the blocks of an SM. A persistent cluster that loaded the next
+// strip while splitting one was slower: its second strip buffer cost a
+// block an SM.
+template <bool TMA>
+__global__ void __launch_bounds__(WPL_MAX_THREADS, 3)
+window_product_limbs_kernel(const __grid_constant__ CUtensorMap map_a,
+                            const __grid_constant__ CUtensorMap wide_a,
+                            const __grid_constant__ CUtensorMap map_b,
+                            const __grid_constant__ CUtensorMap wide_b,
+                            const float2* __restrict__ a,
                             const float2* __restrict__ b,
                             const int* __restrict__ starts,
                             int8_t* __restrict__ x_limbs,
                             float* __restrict__ x_scales, int batch,
                             int a_batch, int ha, int wa, int hb, int wb, int w,
-                            int kp) {
-  __shared__ int col_max[WPL_MAX_THREADS / WPL_COLS][3][WPL_COLS];
-  __shared__ float col_scale[3][WPL_COLS];
+                            int kp, int segs_per_block, int slots) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int rank = blockIdx.x, ranks = gridDim.x;
   const int bi = blockIdx.y;
-  const int v0 = blockIdx.x * WPL_COLS;
-  const int subs = blockDim.x / WPL_COLS;
+  const int v0 = blockIdx.z * WPL_COLS;
+  const int t = threadIdx.x, threads = blockDim.x;
   const int ar = starts[4 * bi], ac = starts[4 * bi + 1];
   const int br = starts[4 * bi + 2], bc = starts[4 * bi + 3];
   if (ar < 0 || ac < 0 || br < 0 || bc < 0 || ar > ha - w || ac > wa - w ||
-      br > hb - w || bc > wb - w) {
-    const int p = threadIdx.x / WPL_COLS, v = v0 + threadIdx.x % WPL_COLS;
-    if (p < 3 && v < w) x_scales[((long)p * batch + bi) * w + v] = __int_as_float(0x7fc00000);
+      br > hb - w || bc > wb - w) {  // every block of the cluster leaves here
+    const int p = t / WPL_COLS, v = v0 + t % WPL_COLS;
+    if (rank == 0 && p < 3 && v < w)
+      x_scales[((long)p * batch + bi) * w + v] = __int_as_float(0x7fc00000);
     return;
   }
-  const float2* pa = a + ((long)(a_batch == 1 ? 0 : bi) * ha + ar) * wa + ac + v0;
-  const float2* pb = b + (long)br * wb + bc + v0;
-  {
-    const int col = threadIdx.x % WPL_COLS;
-    const int sub = threadIdx.x / WPL_COLS;
-    float m[3] = {0.0f, 0.0f, 0.0f};
-    if (v0 + col < w) {
-#pragma unroll 4
-      for (int u = sub; u < w; u += subs) {
-        const float2 x = cmul(pa[(long)u * wa + col], pb[(long)u * wb + col]);
+  const int strip_rows = segs_per_block * SEG;
+  float2* strip = reinterpret_cast<float2*>(smem);
+  float2* ring = strip + strip_rows * WPL_PITCH;
+  uint8_t* tail = smem + (strip_rows + slots * WPL_BOX) * WPL_ROW_BYTES;
+  const uint32_t bar0 = smem_addr(tail);
+  int(*block_max)[3][WPL_COLS] =
+      reinterpret_cast<int(*)[3][WPL_COLS]>(tail + 8 * WPL_MAX_SLOTS);
+  int(*rank_max)[3][WPL_COLS] = block_max + 1;
+  float(*col_scale)[WPL_COLS] =
+      reinterpret_cast<float(*)[WPL_COLS]>(rank_max + WPL_MAX_CLUSTER);
+
+  const int seg0 = rank * segs_per_block;
+  const int segs = max(0, min(segs_per_block, kp / SEG - seg0));
+  const int u0 = seg0 * SEG;  // the block's first row
+  const int boxes = (segs * SEG + WPL_BOX - 1) / WPL_BOX;
+  const int loads = u0 < w ? min(boxes, (w - u0 + WPL_BOX - 1) / WPL_BOX) : 0;
+  const int ab = a_batch == 1 ? 0 : bi;
+  // Element (row r, column v) of an operand's box rows lies at r * pitch +
+  // shift + v: pitch 18 and shift 1 for a TMA box that starts a column
+  // early, else pitch 16 and shift 0.
+  const int sa = TMA ? ac % 2 : 0, sb = TMA ? bc % 2 : 0;
+  const int pa = WPL_COLS + 2 * sa, pb = WPL_COLS + 2 * sb;
+  const int tx = TMA ? WPL_BOX * 8 * (pa + pb) : 0;
+  // Box g: rows u0 + 32 g .. of a into the strip, of b into slot g % slots.
+  auto issue = [&](int g) {
+    const int s = g % slots;
+    const int row = u0 + g * WPL_BOX;
+    float2* dst_a = strip + g * WPL_BOX * pa;
+    float2* dst_b = ring + s * WPL_BOX * pb;
+    if (TMA) {
+      if (t == 0) {
+        mbar_expect_tx(bar0 + 8 * s, tx);
+        tma_load_3d(smem_addr(dst_a), sa ? &wide_a : &map_a, ac + v0 - sa,
+                    ar + row, ab, bar0 + 8 * s);
+        tma_load_3d(smem_addr(dst_b), sb ? &wide_b : &map_b, bc + v0 - sb,
+                    br + row, 0, bar0 + 8 * s);
+      }
+    } else {
+      for (int e = t; e < WPL_BOX * WPL_COLS; e += threads) {
+        const int u = row + e / WPL_COLS, v = v0 + e % WPL_COLS;
+        if (u < w && v < w) {
+          cp_async_8(smem_addr(dst_a + e), a + ((long)ab * ha + ar + u) * wa + ac + v);
+          cp_async_8(smem_addr(dst_b + e), b + (long)(br + u) * wb + bc + v);
+        }
+      }
+      cp_async_arrive(bar0 + 8 * s);
+    }
+  };
+  if (t < 3 * WPL_COLS) (&block_max[0][0][0])[t] = 0;
+  if (t == 0) {
+    for (int s = 0; s < slots; ++s) mbar_init(bar0 + 8 * s, TMA ? 1 : threads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int g = 0; g < loads && g < slots; ++g) issue(g);
+  cluster_arrive_relaxed();  // this block has started: peers may store here
+
+  // Products, in place, and the maxima of column v: a thread takes rows
+  // t / 16, t / 16 + threads / 16, ... of each box.
+  const int v = t % WPL_COLS;
+  float m[3] = {0.0f, 0.0f, 0.0f};
+  for (int g = 0; g < boxes; ++g) {
+    const int s = g % slots;
+    if (g < loads) mbar_wait(bar0 + 8 * s, (g / slots) & 1);
+    for (int r_box = t / WPL_COLS; r_box < WPL_BOX; r_box += threads / WPL_COLS) {
+      const int r = g * WPL_BOX + r_box;
+      float2* xa = strip + r * pa + sa + v;
+      float2 x = make_float2(0.0f, 0.0f);
+      if (g < loads && u0 + r < w) {
+        x = cmul(*xa, ring[(s * WPL_BOX + r_box) * pb + sb + v]);
         m[0] = absmax(m[0], x.x);
         m[1] = absmax(m[1], x.y);
         m[2] = absmax(m[2], x.x + x.y);
       }
+      *xa = x;
     }
+    if (g + slots < loads) {  // the same for every thread of the block
+      __syncthreads();        // slot s read by all
+      issue(g + slots);
+    }
+  }
+  // The column maxima: over the two half-warps, the warps, the cluster.
 #pragma unroll
-    for (int p = 0; p < 3; ++p) col_max[sub][p][col] = __float_as_int(m[p]);
+  for (int p = 0; p < 3; ++p)
+    m[p] = absmax(m[p], __shfl_xor_sync(0xffffffffu, m[p], WPL_COLS));
+  if (t % 32 < WPL_COLS) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) atomicMax(&block_max[0][p][v], __float_as_int(m[p]));
   }
   __syncthreads();
-  if (threadIdx.x < 3 * WPL_COLS) {
-    const int p = threadIdx.x / WPL_COLS, col = threadIdx.x % WPL_COLS;
+  cluster_wait();  // every block of the cluster has started
+  const int mp = t / WPL_COLS;
+  if (t < 3 * WPL_COLS) {  // this block's maxima into every block's rank_max
+    const int best = block_max[0][mp][v];
+    for (int k = 0; k < ranks; ++k) st_cluster(&rank_max[rank][mp][v], k, best);
+  }
+  cluster_arrive();  // every block's maxima stored in every block
+  cluster_wait();
+  if (t < 3 * WPL_COLS) {
     int best = 0;
-    for (int s = 0; s < subs; ++s) best = max(best, col_max[s][p][col]);
+    for (int k = 0; k < ranks; ++k) best = max(best, rank_max[k][mp][v]);
     const float scale = limb_scale(__int_as_float(best));
-    col_scale[p][col] = scale;
-    if (v0 + col < w) x_scales[((long)p * batch + bi) * w + v0 + col] = scale * 65536.0f;
+    col_scale[mp][v] = scale;
+    if (rank == 0 && v0 + v < w)
+      x_scales[((long)mp * batch + bi) * w + v0 + v] = scale * 65536.0f;
   }
   __syncthreads();
+
+  // The split of this block's segments.
   const long limb_stride = (long)batch * w * kp;
-  const int segs = kp / SEG;
-  for (int task = threadIdx.x; task < wpl_tasks(kp); task += blockDim.x) {
-    // 4 consecutive segments of one column in 4 neighbouring lanes
-    const int col = task / 4 % WPL_COLS;
-    const int seg = task % 4 + 4 * (task / (4 * WPL_COLS));
-    if (v0 + col >= w || seg >= segs) continue;
-    const int u0 = seg * SEG;
+  for (int task = t; task < segs * WPL_COLS; task += threads) {
+    const int col = task % WPL_COLS, seg = task / WPL_COLS;
+    if (v0 + col >= w) continue;
     float re[SEG], im[SEG];
 #pragma unroll
     for (int i = 0; i < SEG; ++i) {
-      const int u = u0 + i;
-      const float2 x = u < w ? cmul(pa[(long)u * wa + col], pb[(long)u * wb + col])
-                             : make_float2(0.0f, 0.0f);
+      const float2 x = strip[(seg * SEG + i) * pa + sa + col];
       re[i] = x.x;
       im[i] = x.y;
     }
     const float scale[3] = {col_scale[0][col], col_scale[1][col], col_scale[2][col]};
-    store_limbs(re, im, scale, x_limbs + ((long)bi * w + v0 + col) * kp + u0,
+    store_limbs(re, im, scale,
+                x_limbs + ((long)bi * w + v0 + col) * kp + (seg0 + seg) * SEG,
                 limb_stride);
   }
 }
@@ -836,6 +1016,93 @@ int limb_map(CUtensorMap* map, const void* limbs, int batch, int rows, int kp,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// 3-D TMA map (cols, rows, arrays) of complex64 arrays (arrays, rows, cols)
+// as 8-byte elements, box {box_cols, WPL_BOX, 1}: 32 rows of a strip;
+// elements past the arrays read as zero. The row pitch (8 * cols bytes)
+// must be a multiple of 16. Returns 0 or a CUDA error code.
+int window_map(CUtensorMap* map, const void* base, int arrays, int rows,
+               int cols, int box_cols) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)arrays};
+  const cuuint64_t strides[2] = {8ull * cols, 8ull * cols * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, WPL_BOX, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT64, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The launch of window_product_limbs for a window of w columns (kp rows
+// with the zero tail), chosen from w alone:
+//   * the load path: TMA where both row pitches are multiples of 16 bytes
+//     (wa and wb even), both bases 16-byte aligned and w >= WPL_BOX, else
+//     per-thread 8-byte cp.async copies into the same buffers;
+//   * the cluster: the least of 1, 2, 4, 8 blocks for which a block's rows
+//     (segs_per_block = 2 * ceil(kp / 32 / ranks) segments of 16, so whole
+//     boxes) hold both operands in WPL_TARGET_BYTES (2 blocks an SM at
+//     288 rows, 3 at 256 and fewer); past
+//     8 (kp > 2,304), 8 blocks with the rows of b in a ring of what
+//     WPL_LOAD_BYTES leaves (every box in flight while it holds them all,
+//     kp <= 6,144; at least two slots, kp <= 12,032; wider is refused).
+// At the main-path shapes (B, n, w): (4, 1024, 520) 2 blocks of 288 rows,
+// 264 blocks, 1.0 wave of 264 (2 an SM on 132 SMs); (4, 2048, 1032) 4 of
+// 288, 1,040, 3.9 waves of 264; (4, 1024, 1024) 4 of 256, 1,024, 2.6
+// waves of 396 (3 an SM); (4, 2048, 2048) 8 of 256, 4,096, 10.3 waves.
+struct WplPlan {
+  int tma, cluster, segs_per_block, slots, smem, threads;
+};
+
+int wpl_plan(const void* a, const void* b, int wa, int wb, int w, int kp,
+             WplPlan* plan) {
+  const int segs = kp / SEG;
+  auto per_block = [&](int ranks) {
+    return 2 * ((segs + 2 * ranks - 1) / (2 * ranks));
+  };
+  int ranks = 1;
+  while (ranks < WPL_MAX_CLUSTER &&
+         2 * per_block(ranks) * SEG * WPL_ROW_BYTES > WPL_TARGET_BYTES)
+    ranks *= 2;
+  const int spb = per_block(ranks);
+  const int strip = spb * SEG * WPL_ROW_BYTES;
+  const int boxes = spb * SEG / WPL_BOX;
+  const int room = (WPL_LOAD_BYTES - strip) / WPL_BOX_BYTES;
+  const int slots = boxes < room ? boxes : room;
+  if (slots < 2) return (int)cudaErrorInvalidValue;
+  plan->tma = w >= WPL_BOX && wa % 2 == 0 && wb % 2 == 0 &&
+              reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  plan->cluster = ranks;
+  plan->segs_per_block = spb;
+  plan->slots = slots;
+  plan->smem = strip + slots * WPL_BOX_BYTES + WPL_TAIL_BYTES;
+  plan->threads = spb * WPL_COLS < WPL_MAX_THREADS ? spb * WPL_COLS : WPL_MAX_THREADS;
+  return 0;
+}
+
+// Raises window_product_limbs_kernel<TMA>'s dynamic shared-memory limit to
+// the most a launch asks for, once on each device (as launch_tiles).
+template <class Kernel>
+int raise_smem(Kernel kernel, bool tma) {
+  static std::atomic<unsigned long long> raised[2];
+  int device = 0;
+  if (cudaError_t e = cudaGetDevice(&device)) return (int)e;
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ull << device;
+  if (!(raised[tma].load(std::memory_order_acquire) & bit)) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        WPL_LOAD_BYTES + WPL_TAIL_BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    raised[tma].fetch_or(bit, std::memory_order_release);
+  }
+  return 0;
 }
 
 inline dim3 tiles(int rows, int cols, int batch = 1) {
@@ -926,14 +1193,55 @@ int window_product_limbs(const void* a, const void* b, const void* starts,
                          void* stream) {
   if (kp % 32 || kp < w || w < 1 || (a_batch != 1 && a_batch != batch))
     return (int)cudaErrorInvalidValue;
-  const int threads = wpl_tasks(kp) < WPL_MAX_THREADS ? wpl_tasks(kp) : WPL_MAX_THREADS;
-  const dim3 grid((w + WPL_COLS - 1) / WPL_COLS, batch);
-  window_product_limbs_kernel<<<grid, threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(a), static_cast<const float2*>(b),
-      static_cast<const int*>(starts), static_cast<int8_t*>(x_limbs),
-      static_cast<float*>(x_scales), batch, a_batch, ha, wa, hb, wb, w, kp);
-  return (int)cudaGetLastError();
+  WplPlan plan;
+  if (int e = wpl_plan(a, b, wa, wb, w, kp, &plan)) return e;
+  CUtensorMap map_a{}, wide_a{}, map_b{}, wide_b{};  // per-thread: unread
+  if (plan.tma) {
+    if (int e = window_map(&map_a, a, a_batch, ha, wa, WPL_COLS)) return e;
+    if (int e = window_map(&wide_a, a, a_batch, ha, wa, WPL_PITCH)) return e;
+    if (int e = window_map(&map_b, b, 1, hb, wb, WPL_COLS)) return e;
+    if (int e = window_map(&wide_b, b, 1, hb, wb, WPL_PITCH)) return e;
+  }
+  auto kernel = plan.tma ? window_product_limbs_kernel<true>
+                         : window_product_limbs_kernel<false>;
+  if (int e = raise_smem(kernel, plan.tma)) return e;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(plan.cluster, batch, (w + WPL_COLS - 1) / WPL_COLS);
+  config.blockDim = dim3(plan.threads);
+  config.dynamicSmemBytes = plan.smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = plan.cluster;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &config, kernel, map_a, wide_a, map_b, wide_b, static_cast<const float2*>(a),
+      static_cast<const float2*>(b), static_cast<const int*>(starts),
+      static_cast<int8_t*>(x_limbs), static_cast<float*>(x_scales), batch,
+      a_batch, ha, wa, hb, wb, w, kp, plan.segs_per_block, plan.slots);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// How window_product_limbs runs for these operands: plan[0..5] = TMA (1) or
+// per-thread loads (0), the cluster size, rows a block, b ring slots,
+// dynamic shared memory bytes and threads a block. Returns 0 or a CUDA error code (a
+// window too wide for a cluster's shared memory).
+int window_product_limbs_plan(const void* a, const void* b, int wa, int wb,
+                              int w, int kp, void* plan) {
+  if (kp % 32 || kp < w || w < 1) return (int)cudaErrorInvalidValue;
+  WplPlan p;
+  if (int e = wpl_plan(a, b, wa, wb, w, kp, &p)) return e;
+  int* out = static_cast<int*>(plan);
+  out[0] = p.tma;
+  out[1] = p.cluster;
+  out[2] = p.segs_per_block * SEG;
+  out[3] = p.slots;
+  out[4] = p.smem;
+  out[5] = p.threads;
+  return 0;
 }
 
 int column_intensity(const void* y_limbs, const void* y_scales,

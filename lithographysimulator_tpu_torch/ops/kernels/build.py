@@ -37,6 +37,7 @@ SIGNATURES = {
     "row_requantize": (_P, _P, _P, _P, _I, _I, _I, _P),
     "window_product_limbs": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P),
+    "window_product_limbs_plan": (_P, _P, _I, _I, _I, _I, _P),
     "column_intensity": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "set_dynamic_smem": (_I,),
 }

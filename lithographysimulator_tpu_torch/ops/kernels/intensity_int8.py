@@ -369,6 +369,27 @@ def window_product_limbs(a: torch.Tensor, b: torch.Tensor,
     return x_limbs, x_scales
 
 
+def window_product_limbs_plan(a: torch.Tensor, b: torch.Tensor, w: int) -> dict:
+    """How :func:`window_product_limbs` runs on the card for these CUDA
+    operands (the kernel's own rule, read from the built library): ``path``
+    ``"tma"`` or ``"per-thread"`` (a row pitch that is not a multiple of 16
+    bytes), ``cluster`` blocks a 16-column strip, and ``rows``, ``slots``
+    of b's ring, ``smem`` bytes and ``threads`` a block."""
+    from .build import load_library
+
+    out = torch.zeros(6, dtype=torch.int32)
+    err = load_library().window_product_limbs_plan(
+        a.data_ptr(), b.data_ptr(), a.shape[-1], b.shape[-1], w,
+        padded_width(w), out.data_ptr())
+    if err:
+        raise ValueError(f"window_product_limbs takes no (w={w}, w) window "
+                         f"of {tuple(a.shape)} and {tuple(b.shape)}: error {err}")
+    keys = ("tma", "cluster", "rows", "slots", "smem", "threads")
+    plan = dict(zip(keys, out.tolist()))
+    plan["path"] = "tma" if plan.pop("tma") else "per-thread"
+    return plan
+
+
 def row_transform_int8(x, t_limbs, t_scales, *, fast: bool = False):
     """``Y_b = T0 @ X_b`` for (B, w, w) complex X, returned row-quantized for
     :func:`column_intensity_int8`: y_limbs (3, 3, B, n, kp), y_scales

@@ -133,6 +133,112 @@ def test_window_outside_its_operand_gives_nan_scales():
     assert scales[:, 1].isnan().all()
 
 
+def _window_path_case(case, dev):
+    """Operands (a, b, starts, w) of window_product_limbs for one of its
+    launch paths, and the (path, cluster) its plan must choose."""
+    rng = np.random.default_rng(7)
+
+    def cplx(*shape):
+        return torch.as_tensor((rng.normal(size=shape) + 1j * rng.normal(size=shape)
+                                ).astype(np.complex64), device=dev)
+
+    def odd_starts(batch, a_side, b_side, w):
+        return np.stack([rng.integers(0, a_side - w + 1, batch),
+                         rng.integers(0, (a_side - w) // 2, batch) * 2 + 1,
+                         rng.integers(0, b_side - w + 1, batch),
+                         rng.integers(0, (b_side - w) // 2, batch) * 2 + 1], axis=1)
+
+    if case == "cluster":      # the SOCS apply at 2048^2: 8 blocks a strip
+        a, b, w, starts = cplx(4, 2048, 2048), cplx(2048, 2048), 2048, np.zeros((4, 4))
+        expect = ("tma", 8)
+    elif case == "per-thread":  # odd row pitches, exact-like odd starts
+        a, b, w = cplx(1, 2047, 2047), cplx(1025, 1025), 520
+        starts, expect = odd_starts(4, 2047, 1025, w), ("per-thread", 2)
+    elif case == "per-thread-socs":  # odd pitches, whole arrays, w % 16 = 15
+        a, b, w, starts = cplx(4, 1023, 1023), cplx(1023, 1023), 1023, np.zeros((4, 4))
+        expect = ("per-thread", 4)
+    elif case == "a-batch-1":  # one shared a for B = 4 windows
+        a, b, w = cplx(1, 2048, 2048), cplx(1040, 1040), 1024
+        starts, expect = odd_starts(4, 2048, 1040, w), ("tma", 4)
+    elif case == "last-start":  # every window at its last valid start
+        a, b, w = cplx(1, 2048, 2048), cplx(1024, 1024), 520
+        starts = np.tile([2048 - w, 2048 - w, 1024 - w, 1024 - w], (4, 1))
+        expect = ("tma", 2)
+    elif case == "ragged":     # w = 264 and 40: a half strip, kp past w
+        a, b, w = cplx(1, 656, 656), cplx(328, 328), 264
+        starts, expect = odd_starts(2, 656, 328, w), ("tma", 1)
+    elif case == "ring":       # more boxes than the ring holds: refills
+        a, b, w, starts = cplx(1, 7200, 7200), cplx(7200, 7200), 7200, np.zeros((1, 4))
+        expect = ("tma", 8)
+    else:                      # "per-thread-ring"
+        a, b, w, starts = cplx(1, 7201, 7201), cplx(7201, 7201), 7201, np.zeros((1, 4))
+        expect = ("per-thread", 8)
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    starts = ik.check_window_starts(np.asarray(starts, np.int64), w, a.shape, b.shape)
+    return (a, b, torch.as_tensor(starts, device=dev), w), expect
+
+
+# window_product_limbs on each of its launch paths: TMA loads or per-thread
+# cp.async (odd row pitches), one block a strip or a cluster of 2-8, the b
+# rows all in flight or in a refilled ring; limbs and scales bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cluster", "per-thread", "per-thread-socs",
+                                  "a-batch-1", "last-start", "ragged", "ring",
+                                  "per-thread-ring"])
+def test_window_product_limbs_paths(case):
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    window, (path, cluster) = _window_path_case(case, dev)
+    plan = ik.window_product_limbs_plan(window[0], window[1], window[3])
+    assert (plan["path"], plan["cluster"]) == (path, cluster), plan
+    if case.endswith("ring"):
+        assert plan["slots"] < plan["rows"] // 32, plan
+    before = ik.LAUNCHES["window_product_limbs"]
+    _assert_same_limbs(ik.window_product_limbs(*window),
+                       ik.window_product_limbs_plain(*window))
+    assert ik.LAUNCHES["window_product_limbs"] == before + 1
+
+
+@pytest.mark.cuda
+def test_window_outside_its_operand_at_a_cluster_shape():
+    """A window past its operand at a shape that runs 4-block clusters:
+    its scales are NaN, and the valid window beside it is the plain
+    version's bit for bit."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor((rng.normal(size=(2, 1024, 1024)) + 1j * rng.normal(
+        size=(2, 1024, 1024))).astype(np.complex64), device=dev)
+    b = torch.as_tensor(rng.normal(size=(1024, 1024)).astype(np.complex64), device=dev)
+    assert ik.window_product_limbs_plan(a, b, 1024)["cluster"] == 4
+    starts = torch.tensor([[0, 0, 0, 0], [0, 0, 1, 0]], dtype=torch.int32, device=dev)
+    limbs, scales = ik.window_product_limbs(a, b, starts, 1024)
+    ref_limbs, ref_scales = ik.window_product_limbs_plain(a[:1], b, starts[:1], 1024)
+    assert scales[:, 1].isnan().all()
+    _assert_same_limbs((limbs[:, :, :1].contiguous(), scales[:, :1].contiguous()),
+                       (ref_limbs, ref_scales))
+
+
+@pytest.mark.cuda
+def test_window_too_wide_for_a_cluster_is_refused():
+    """Past kp = 12,032 a cluster of 8 cannot hold a strip: the plan and
+    the launch raise, and nothing is counted."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    a = torch.zeros((1, 13900, 13900), dtype=torch.complex64, device=dev)
+    starts = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="takes no"):
+        ik.window_product_limbs_plan(a, a[0], 13900)
+    before = dict(ik.LAUNCHES)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        ik.window_product_limbs(a, a[0], starts, 13900)
+    assert ik.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_refused_launch_raises():
     """A launch the card refuses (more dynamic shared memory than a block

@@ -167,8 +167,11 @@ def _window_case(kind, seed=9):
     ``exact`` is the tiled 2n x 2n pupil (Ba = 1) with starts from
     abbe._window_starts at n = 64, w = 40; ``batched`` the same starts on a
     batch of 2n x 2n arrays (Ba = B); ``socs`` a batch of (n, n) kernels at
-    zero starts, w = n = 48. Column 35 of b is zero, so every exact window
-    holds an all-zero column of X."""
+    zero starts, w = n = 48; ``odd`` the exact starts at w = 37 (neither a
+    multiple of 16 nor of 4) in a (1, 2n + 1, 2n + 1) array and an
+    (n + 1, n + 1) one, whose odd row pitches send the card's kernel to its
+    per-thread loads. Column 35 of b is zero, so every window but the
+    SOCS ones holds an all-zero column of X."""
     from lithographysimulator_tpu_torch.ops import abbe as pa
 
     rng = np.random.default_rng(seed)
@@ -180,13 +183,14 @@ def _window_case(kind, seed=9):
     if kind == "socs":
         w, a, starts = n, cplx(b_count, n, n), np.zeros((b_count, 4), np.int64)
     else:
-        w = 40
+        w = 37 if kind == "odd" else 40
         pupil = cplx(n, n)
         a = (np.tile(pupil, (2, 2))[None] if kind == "exact"
+             else cplx(1, 2 * n + 1, 2 * n + 1) if kind == "odd"
              else cplx(b_count, 2 * n, 2 * n))
         shifts = rng.integers(-(n // 4 - 2), n // 4 - 1, size=(b_count, 2))
         starts = pa._window_starts(shifts, n, w, n // 4 - 1)
-    b = cplx(n, n)
+    b = cplx(n + 1, n + 1) if kind == "odd" else cplx(n, n)
     if kind != "socs":
         b[:, 35] = 0.0
     ba = np.zeros(b_count, int) if a.shape[0] == 1 else np.arange(b_count)
@@ -195,7 +199,7 @@ def _window_case(kind, seed=9):
     return a, b, starts, w, x
 
 
-@pytest.mark.parametrize("kind", ["exact", "batched", "socs"])
+@pytest.mark.parametrize("kind", ["exact", "batched", "socs", "odd"])
 def test_window_product_limbs_plain_matches_jax_quantize_cols(kind):
     """The X-side limbs: the port's gather-product-quantize (what the wrapper
     runs on CPU tensors) against the JAX package's quantize_cols of the
