@@ -41,33 +41,31 @@ of :data:`K_ALIGN` (exact: zero limbs add nothing); scales are f32
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
+
+from ..._spans import Counters
 
 #: contraction padding: the depth of one int8 wgmma (the kernels' TMA boxes
 #: zero-fill their 128-byte slabs past it)
 K_ALIGN = 32
 
+# the launch counts, in the port's counter store (tallied as
+# ``int8_launches.<kernel>`` while a trace records)
+_LAUNCH_COUNTS = Counters("int8_launches", ("window_product_limbs",
+                                            "row_limb_gemm", "row_requantize",
+                                            "column_intensity"))
 #: kernel launches by name (wrappers count only their CUDA launches)
-LAUNCHES = {"window_product_limbs": 0, "row_limb_gemm": 0,
-            "row_requantize": 0, "column_intensity": 0}
-# a server's threads launch together, and ``+= 1`` on a dict entry is a
-# read, an add and a write: without the lock a launch can go uncounted
-_LAUNCH_LOCK = threading.Lock()
+LAUNCHES = _LAUNCH_COUNTS.totals
 
 
 def reset_launch_counts() -> None:
-    with _LAUNCH_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+    _LAUNCH_COUNTS.reset()
 
 
 def count_launch(name: str) -> None:
     """Add one launch of kernel ``name`` to :data:`LAUNCHES`."""
-    with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+    _LAUNCH_COUNTS.add(name)
 
 
 def padded_width(w: int) -> int:

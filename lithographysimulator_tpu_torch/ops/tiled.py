@@ -17,6 +17,12 @@ and serves every tile; memory stays O(tile^2) above the chip itself.
 streaming path reads that many windows from the host per upload, and
 ``progress_cb`` reports once per group, after a synchronize (the JAX
 package's ``block_until_ready``). It changes no value.
+
+While a profiler trace records, :func:`tiled_socs_image` marks its call
+(``litho.tiled``), the padding (``.pad``), each tile from its window to its
+stitched core (``.tile``: the host's enqueue of a tile) and the final crop
+(``.finish``); every tiled path marks a tile's spectrum and apply
+(``litho.tiled.tile.spectrum``, ``.apply``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from .._spans import span
 from .._tensors import to_tensor
 from ..config import OpticsConfig
 from .fraunhofer import mask_spectrum
@@ -113,9 +120,11 @@ def _core(window: torch.Tensor, socs: SOCSKernels, tile_config, halo: int,
           step: int, *, solver, chunk, engine, spectrum_solver, mask3d
           ) -> torch.Tensor:
     """One tile: (n, n) mask window -> (step, step) image core."""
-    img = socs_image(_spectrum(window, tile_config, spectrum_solver, mask3d),
-                     socs, tile_config, solver=solver, chunk=chunk,
-                     engine=engine)
+    with span("litho.tiled.tile.spectrum"):
+        spectrum = _spectrum(window, tile_config, spectrum_solver, mask3d)
+    with span("litho.tiled.tile.apply"):
+        img = socs_image(spectrum, socs, tile_config, solver=solver,
+                         chunk=chunk, engine=engine)
     return img[halo:halo + step, halo:halo + step]
 
 
@@ -150,20 +159,25 @@ def tiled_socs_image(
     big_n = mask_big.shape[-1]
     n = tile_config.n
     halo, tiles, step = _layout(big_n, tile_config, halo, mask3d)
-    padded = _padded_chip(mask_big, n, halo, tiles, step, device)
-    out = torch.empty((tiles * step, tiles * step), dtype=torch.float32,
-                      device=device)
-    groups = _groups(tiles, tiles_per_dispatch)
-    for gi, group in enumerate(groups):
-        for i, j in group:
-            out[i * step:(i + 1) * step, j * step:(j + 1) * step] = _core(
-                padded[i * step:i * step + n, j * step:j * step + n], socs,
-                tile_config, halo, step, solver=solver, chunk=chunk,
-                engine=engine, spectrum_solver=spectrum_solver, mask3d=mask3d)
-        if progress_cb is not None:
-            _sync(device)
-            progress_cb((gi + 1) / len(groups))
-    return out[:big_n, :big_n].contiguous()
+    with span("litho.tiled"):
+        with span("litho.tiled.pad"):
+            padded = _padded_chip(mask_big, n, halo, tiles, step, device)
+        out = torch.empty((tiles * step, tiles * step), dtype=torch.float32,
+                          device=device)
+        groups = _groups(tiles, tiles_per_dispatch)
+        for gi, group in enumerate(groups):
+            for i, j in group:
+                with span("litho.tiled.tile"):
+                    out[i * step:(i + 1) * step, j * step:(j + 1) * step] = _core(
+                        padded[i * step:i * step + n, j * step:j * step + n],
+                        socs, tile_config, halo, step, solver=solver,
+                        chunk=chunk, engine=engine,
+                        spectrum_solver=spectrum_solver, mask3d=mask3d)
+            if progress_cb is not None:
+                _sync(device)
+                progress_cb((gi + 1) / len(groups))
+        with span("litho.tiled.finish"):
+            return out[:big_n, :big_n].contiguous()
 
 
 def tiled_socs_image_stream(

@@ -34,10 +34,24 @@ Endpoints (JSON bodies; arrays as nested lists or base64 float32):
   /jobs/<id>/artifact/<name>`` (:func:`fetch_artifact`).
 * ``POST /jobs/<id>/cancel``: drops a queued job, stops a running one at
   its next progress tick.
-* ``GET /health``: the device, uptime, batching counters and the SOCS
-  kernel cache held for the signatures served (ROADMAP.md D12; the JAX
-  worker's ``live_programs`` and ``jit_cache_clears`` count XLA programs,
-  which the port does not compile).
+* ``GET /health``: the device, uptime, the batching counters
+  (``requests_served``, ``batches_run``, ``batched_requests``), the SOCS
+  kernel cache held for the signatures served (``socs_cache_entries``,
+  ``socs_cache_bytes``; ROADMAP.md D12: the JAX worker's ``live_programs``
+  and ``jit_cache_clears`` count XLA programs, which the port does not
+  compile), the cache's look-ups since the process started
+  (``socs_cache_hits``, ``socs_cache_misses``, ``socs_cache_evictions``)
+  and the int8 kernels' launches by kernel (``int8_launches``).
+
+While a profiler trace records (:mod:`.utils.profiling`), a worker's POST
+carries a request id, issued as its body arrives, on its spans:
+``litho.serve.read`` (the body off the socket), ``litho.serve.decode``
+(JSON, then the body's checks and base64), ``litho.serve.queue`` (from the
+enqueue to the batch worker's take, the coalescing window included) and
+``litho.serve.encode`` (the image's base64, then the reply's JSON and its
+write). The worker marks each batch (``litho.serve.batch``, with its
+``size`` and its ``requests``' ids) and, within it, the coalescing wait
+(``.window``) and the run (``.run``: ``simulate_batch`` and the read-back).
 
 Start a worker on the card: ``python -m lithographysimulator_tpu_torch.serve
 --port 8100`` (``--device cuda:1`` for another card). Start a router:
@@ -49,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
 import functools
 import json
@@ -61,6 +76,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from ._spans import (Counters, current_request, end_span, request_scope, span,
+                     stamp)
 
 
 def _complex_index(value) -> complex:
@@ -215,9 +233,12 @@ def fetch_artifact(base_url: str, stream_path: str, *,
 
 class _Pending:
     """One enqueued /simulate request: its optical signature, mask, and the
-    slot its result (or error) lands in."""
+    slot its result (or error) lands in; its request id and handler thread,
+    and the start of its wait in the queue (:func:`._spans.stamp`), for the
+    ``litho.serve.queue`` span that the batch worker ends."""
 
-    __slots__ = ("signature", "mask", "event", "image", "error")
+    __slots__ = ("signature", "mask", "event", "image", "error", "request",
+                 "thread", "queued_ns")
 
     def __init__(self, signature, mask):
         self.signature = signature
@@ -225,6 +246,9 @@ class _Pending:
         self.event = threading.Event()
         self.image = None
         self.error: Exception | None = None
+        self.request = current_request()
+        self.thread = threading.get_ident()
+        self.queued_ns = None
 
 
 class JobCancelled(Exception):
@@ -674,13 +698,12 @@ class LithoService:
                  batch_window_s: float = 0.005, max_batch: int = 8):
         self.device = torch.device(device)
         self.started = time.time()
-        self.requests_served = 0
-        self.batches_run = 0
-        self.batched_requests = 0
+        self._counts = Counters("serve", ("requests_served", "batches_run",
+                                          "batched_requests"))
         self.max_batch = max_batch
         self.batch_window_s = batch_window_s
         self.batching = batching
-        self._lock = threading.Lock()  # one batch at a time + counters
+        self._lock = threading.Lock()  # one batch at a time
         self._cv = threading.Condition()
         self._queue: list[_Pending] = []
         self._jobs: JobRunner | None = None  # created on first /jobs use
@@ -690,6 +713,18 @@ class LithoService:
                 target=self._drain_forever, daemon=True,
                 name="litho-batch-worker")
             self._worker.start()
+
+    @property
+    def requests_served(self) -> int:
+        return self._counts.totals["requests_served"]
+
+    @property
+    def batches_run(self) -> int:
+        return self._counts.totals["batches_run"]
+
+    @property
+    def batched_requests(self) -> int:
+        return self._counts.totals["batched_requests"]
 
     # -- request parsing -----------------------------------------------------
 
@@ -816,34 +851,43 @@ class LithoService:
     def _drain_once(self, timeout: float | None = None) -> bool:
         """Pull one same-signature batch off the queue and execute it.
         Returns False if the queue stayed empty through ``timeout``."""
-        with self._cv:
-            if not self._queue and not self._cv.wait_for(
-                    lambda: bool(self._queue), timeout=timeout):
-                return False
-            # Coalescing window: let same-signature stragglers arrive.
-            if self.batch_window_s > 0 and len(self._queue) < self.max_batch:
-                self._cv.wait(self.batch_window_s)
-            signature = self._queue[0].signature
-            batch = [p for p in self._queue if p.signature == signature]
-            batch = batch[: self.max_batch]
-            for p in batch:
-                self._queue.remove(p)
-        try:
-            masks = np.stack([p.mask for p in batch])
-            with self._lock:
-                images = self._run_batch(signature, masks)
-                self.requests_served += len(batch)
-                self.batches_run += 1
+        with contextlib.ExitStack() as stack:
+            with self._cv:
+                if not self._queue and not self._cv.wait_for(
+                        lambda: bool(self._queue), timeout=timeout):
+                    return False
+                batch_span = stack.enter_context(span("litho.serve.batch"))
+                # Coalescing window: let same-signature stragglers arrive.
+                with span("litho.serve.batch.window"):
+                    if (self.batch_window_s > 0
+                            and len(self._queue) < self.max_batch):
+                        self._cv.wait(self.batch_window_s)
+                signature = self._queue[0].signature
+                batch = [p for p in self._queue if p.signature == signature]
+                batch = batch[: self.max_batch]
+                for p in batch:
+                    self._queue.remove(p)
+                    end_span("litho.serve.queue", p.queued_ns,
+                             thread=p.thread, request=p.request)
+            batch_span.set(size=len(batch),
+                           requests=[p.request for p in batch])
+            try:
+                with span("litho.serve.batch.run"):
+                    masks = np.stack([p.mask for p in batch])
+                    with self._lock:
+                        images = self._run_batch(signature, masks)
+                self._counts.add("requests_served", len(batch))
+                self._counts.add("batches_run")
                 if len(batch) > 1:
-                    self.batched_requests += len(batch)
-            for p, img in zip(batch, images):
-                p.image = img
-        except Exception as exc:  # noqa: BLE001 - delivered to each waiter
-            for p in batch:
-                p.error = exc
-        finally:
-            for p in batch:
-                p.event.set()
+                    self._counts.add("batched_requests", len(batch))
+                for p, img in zip(batch, images):
+                    p.image = img
+            except Exception as exc:  # noqa: BLE001 - delivered to each waiter
+                for p in batch:
+                    p.error = exc
+            finally:
+                for p in batch:
+                    p.event.set()
         return True
 
     def _drain_forever(self):
@@ -853,28 +897,34 @@ class LithoService:
     # -- endpoints -----------------------------------------------------------
 
     def health(self) -> dict:
-        from .simulate import socs_cache_stats
+        from .ops.kernels.intensity_int8 import LAUNCHES
+        from .simulate import socs_cache_counts, socs_cache_stats
         from .utils.profiling import device_info
 
         entries, nbytes = socs_cache_stats()
+        cache = socs_cache_counts()
         return {
             "status": "ok",
             "uptime_s": round(time.time() - self.started, 1),
-            "requests_served": self.requests_served,
-            "batches_run": self.batches_run,
-            "batched_requests": self.batched_requests,
+            **self._counts.snapshot(),
             "batching": self.batching,
             "socs_cache_entries": entries,
             "socs_cache_bytes": nbytes,
+            "socs_cache_hits": cache["hits"],
+            "socs_cache_misses": cache["misses"],
+            "socs_cache_evictions": cache["evictions"],
+            "int8_launches": dict(LAUNCHES),
             **device_info(self.device),
         }
 
     def simulate(self, body: dict) -> dict:
-        signature, mask = self._parse(body)
+        with span("litho.serve.decode"):
+            signature, mask = self._parse(body)
         t0 = time.perf_counter()
         if self.batching:
             pending = _Pending(signature, mask)
             with self._cv:
+                pending.queued_ns = stamp()
                 self._queue.append(pending)
                 self._cv.notify_all()
             if not pending.event.wait(timeout=self.BATCH_WAIT_TIMEOUT_S):
@@ -890,7 +940,7 @@ class LithoService:
         else:
             with self._lock:
                 image = self._run_batch(signature, mask[None])[0]
-                self.requests_served += 1
+            self._counts.add("requests_served")
         config, source_sig, _, solver, *_ = signature
         report = {
             "solver": solver,
@@ -898,7 +948,8 @@ class LithoService:
             "source_points": int((_source_from_sig(config, source_sig) > 0).sum()),
             "wall_clock_s": round(time.perf_counter() - t0, 4),
         }
-        return {"image": _encode_array(image), "report": report}
+        with span("litho.serve.encode"):
+            return {"image": _encode_array(image), "report": report}
 
     def jobs(self) -> JobRunner:
         with self._jobs_lock:
@@ -1207,17 +1258,24 @@ def _make_http_server(host: str, port: int, dispatch_json, dispatch_raw=None,
 
         def do_POST(self):  # noqa: N802
             length = int(self.headers.get("Content-Length", 0))
-            raw = self.rfile.read(length) or b"{}"
             if dispatch_raw is not None:
-                status, payload = dispatch_raw(self.path, raw)
-            else:
+                raw = self.rfile.read(length) or b"{}"
+                self._reply(*dispatch_raw(self.path, raw))
+                return
+            # a worker's request (the router's path stays unspanned): its
+            # id is issued as the body arrives, and its spans carry it
+            with request_scope():
+                with span("litho.serve.read"):
+                    raw = self.rfile.read(length) or b"{}"
                 try:
-                    body = json.loads(raw)
+                    with span("litho.serve.decode"):
+                        body = json.loads(raw)
                 except json.JSONDecodeError:
                     self._reply(400, {"error": "invalid JSON body"})
                     return
                 status, payload = dispatch_json(self.path, body)
-            self._reply(status, payload)
+                with span("litho.serve.encode"):
+                    self._reply(status, payload)
 
         def log_message(self, fmt, *args):  # quiet by default
             pass

@@ -10,6 +10,15 @@ setup (:func:`simulate_batch`), returning the aerial image and the same run
 report; and the rigorous image in the resist film, exact
 (:func:`film_stack_images`) or through per-slab SOCS kernels
 (:func:`film_socs_kernels`, :func:`film_socs_stack`).
+
+While a profiler trace records (:mod:`.utils.profiling`), :func:`simulate`
+marks its call (``litho.simulate``) and, within it, the host inputs
+(``.inputs``: the source map, its points, the geometry's upload), the
+kernel set's cache key, look-up and any build (``.kernels``), the spectrum
+(``.spectrum``), the apply (``.apply``), the image-error bound (``.bound``)
+and the final synchronize (``.sync``); :func:`simulate_batch` marks its
+call (``litho.simulate_batch``) and kernel set (``.kernels``). The kernel
+set cache counts its hits, misses and evictions (:func:`socs_cache_counts`).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+from ._spans import Counters, span
 from ._tensors import to_tensor
 from .config import OpticsConfig
 from .models.mask import Mask
@@ -188,6 +198,7 @@ def _pupil_power(pupil, config, polarization, apodize) -> float:
 # that miss on one key both build, and the second insertion wins).
 _SOCS_BUILD_CACHE: dict = {}
 _SOCS_BUILD_CACHE_LOCK = threading.Lock()
+_SOCS_CACHE_COUNTS = Counters("socs_cache", ("hits", "misses", "evictions"))
 _SOCS_BUILD_CACHE_MAX = 16
 _SOCS_BUILD_CACHE_BYTES = 16e9
 
@@ -226,6 +237,7 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
            mask3d if tolerance is not None else None, str(device))
     with _SOCS_BUILD_CACHE_LOCK:
         hit = _SOCS_BUILD_CACHE.get(key)
+    _SOCS_CACHE_COUNTS.add("misses" if hit is None else "hits")
     if hit is not None:
         return hit
     pupil = pupil_function(aberrations, config, device=device)
@@ -312,6 +324,7 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
                 or sum(h[0].kernels.nbytes for h in _SOCS_BUILD_CACHE.values())
                 > _SOCS_BUILD_CACHE_BYTES):
             _SOCS_BUILD_CACHE.pop(next(iter(_SOCS_BUILD_CACHE)))
+            _SOCS_CACHE_COUNTS.add("evictions")
     return hit
 
 
@@ -320,6 +333,12 @@ def socs_cache_stats() -> tuple[int, int]:
     with _SOCS_BUILD_CACHE_LOCK:
         return (len(_SOCS_BUILD_CACHE),
                 int(sum(h[0].kernels.nbytes for h in _SOCS_BUILD_CACHE.values())))
+
+
+def socs_cache_counts() -> dict:
+    """The SOCS kernel-set cache's look-ups that hit, those that missed
+    (and built), and the entries evicted, since the process started."""
+    return _SOCS_CACHE_COUNTS.snapshot()
 
 
 def _normalized(image: torch.Tensor, total: float) -> torch.Tensor:
@@ -332,7 +351,24 @@ def _socs_apply(geometry, socs: SOCSKernels, config, *, chunk, normalize,
     spectrum = mask_spectrum(_thick(geometry, config, mask3d), config,
                              solver="gau23")
     image = socs_image(spectrum, socs, config, chunk=chunk)
-    return (_normalized(image, w_sum) if normalize else image), spectrum
+    return _normalized(image, w_sum) if normalize else image
+
+
+def _socs_bound(socs, spectrum, image, pupil, src_np, config, *, energy,
+                polarization, chromatic, total_weight) -> float:
+    """:func:`..ops.hopkins.socs_image_nrms_bound` of a pinned-rank or
+    energy-target run: refined for scalar kernels; for vector and chromatic
+    kernels the sup bound, as the JAX package reports it (R5, reproduced on
+    purpose: its simulate.py:889-894 passes pupil=None), with trace = kept
+    / energy covering both operators."""
+    if polarization is None and chromatic is None:
+        return socs_image_nrms_bound(
+            socs, spectrum, image, pupil=pupil, source_map=src_np,
+            config=config, total_weight=total_weight)
+    kept = float(socs.eigenvalues.sum(dtype=torch.float64))
+    return socs_image_nrms_bound(
+        socs, spectrum, image, trace=kept / energy if energy > 0 else 0.0,
+        total_weight=total_weight)
 
 
 def simulate(
@@ -392,59 +428,61 @@ def simulate(
     config = mask.config
     device = torch.device(device)
     t0 = time.perf_counter()
-
-    src_np, aberrations = _host_inputs(source_map, aberrations)
-    polarization = _polarization_key(polarization)
-    pts = source_points(src_np)
-    geometry = mask.geometry.to(device)
-    socs_report = {}
-    if solver == "socs":
-        w_sum = float(src_np.sum(dtype=np.float64))
-        socs, pupil, energy, bound = _socs_kernels_cached(
-            config, src_np, aberrations, socs_rank, device=device,
-            polarization=polarization, apodize=apodize, chromatic=chromatic,
-            tolerance=socs_tolerance, geometry=mask.geometry, chunk=chunk,
-            mask3d=mask3d)
-        image, spectrum = _socs_apply(geometry, socs, config, chunk=chunk,
-                                      normalize=normalize, w_sum=w_sum,
-                                      mask3d=mask3d)
-        if bound is None:
-            # the accuracy class of the run, from pieces already in hand
-            total_weight = w_sum if normalize else None
-            if polarization is None and chromatic is None:
-                bound = socs_image_nrms_bound(
-                    socs, spectrum, image, pupil=pupil, source_map=src_np,
-                    config=config, total_weight=total_weight)
-            else:
-                # R5, reproduced on purpose: the JAX package reports the
-                # unrefined sup bound for vector and chromatic kernels
-                # (its simulate.py:889-894 passes pupil=None); trace =
-                # kept / energy covers both operators.
-                kept = float(socs.eigenvalues.sum(dtype=torch.float64))
-                bound = socs_image_nrms_bound(
-                    socs, spectrum, image,
-                    trace=kept / energy if energy > 0 else 0.0,
-                    total_weight=total_weight)
-        socs_report = {"socs_rank": socs.rank,
-                       "socs_energy_captured": round(float(energy), 6),
-                       "socs_image_nrms_bound": float(bound)}
-        if socs_tolerance is not None:
-            socs_report["socs_tolerance"] = float(socs_tolerance)
-    else:
-        shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
-        spectrum = mask_spectrum(_thick(geometry, config, mask3d), config,
-                                 solver=solver)
-        pupil = pupil_function(aberrations, config, device=device)
-        max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
-        image = _exact_image(
-            spectrum, aberrations, shifts, weights, config, device=device,
-            solver=solver, chunk=chunk, normalize=normalize,
-            max_abs_shift=max_abs_shift, polarization=polarization,
-            apodize=apodize, chromatic=chromatic)
-    if perturb is not None and perturb.active:
-        image = apply_perturbation(image, perturb, config.pixel_size)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with span("litho.simulate"):
+        with span("litho.simulate.inputs"):
+            src_np, aberrations = _host_inputs(source_map, aberrations)
+            polarization = _polarization_key(polarization)
+            pts = source_points(src_np)
+            geometry = mask.geometry.to(device)
+        socs_report = {}
+        if solver == "socs":
+            w_sum = float(src_np.sum(dtype=np.float64))
+            with span("litho.simulate.kernels"):
+                socs, pupil, energy, bound = _socs_kernels_cached(
+                    config, src_np, aberrations, socs_rank, device=device,
+                    polarization=polarization, apodize=apodize,
+                    chromatic=chromatic, tolerance=socs_tolerance,
+                    geometry=mask.geometry, chunk=chunk, mask3d=mask3d)
+            with span("litho.simulate.spectrum"):
+                spectrum = mask_spectrum(_thick(geometry, config, mask3d),
+                                         config, solver="gau23")
+            with span("litho.simulate.apply"):
+                image = socs_image(spectrum, socs, config, chunk=chunk)
+                if normalize:
+                    image = _normalized(image, w_sum)
+            if bound is None:
+                # the accuracy class of the run, from pieces already in hand
+                with span("litho.simulate.bound"):
+                    bound = _socs_bound(socs, spectrum, image, pupil, src_np,
+                                        config, energy=energy,
+                                        polarization=polarization,
+                                        chromatic=chromatic,
+                                        total_weight=(w_sum if normalize
+                                                      else None))
+            socs_report = {"socs_rank": socs.rank,
+                           "socs_energy_captured": round(float(energy), 6),
+                           "socs_image_nrms_bound": float(bound)}
+            if socs_tolerance is not None:
+                socs_report["socs_tolerance"] = float(socs_tolerance)
+        else:
+            shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
+            with span("litho.simulate.spectrum"):
+                spectrum = mask_spectrum(_thick(geometry, config, mask3d),
+                                         config, solver=solver)
+            with span("litho.simulate.apply"):
+                pupil = pupil_function(aberrations, config, device=device)
+                max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
+                image = _exact_image(
+                    spectrum, aberrations, shifts, weights, config,
+                    device=device, solver=solver, chunk=chunk,
+                    normalize=normalize, max_abs_shift=max_abs_shift,
+                    polarization=polarization, apodize=apodize,
+                    chromatic=chromatic)
+        if perturb is not None and perturb.active:
+            image = apply_perturbation(image, perturb, config.pixel_size)
+        if device.type == "cuda":
+            with span("litho.simulate.sync"):
+                torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0
 
     ws = config.wavelength_scaling()
@@ -503,37 +541,41 @@ def simulate_batch(
     in :func:`simulate`)."""
     _check_solver(solver)
     device = torch.device(device)
-    geometries = to_tensor(geometries, device=device, dtype=torch.float32)
-    if geometries.ndim != 3:
-        raise ValueError(f"expected (B, n, n) geometries, got {tuple(geometries.shape)}")
-    src_np, aberrations = _host_inputs(source_map, aberrations)
-    polarization = _polarization_key(polarization)
-    images = torch.empty_like(geometries)
-    if solver == "socs":
-        socs = _socs_kernels_cached(config, src_np, aberrations, socs_rank,
-                                    device=device, polarization=polarization,
-                                    apodize=apodize, chromatic=chromatic)[0]
-        w_sum = float(src_np.sum(dtype=np.float64))
-        for b, geometry in enumerate(geometries):
-            images[b] = _socs_apply(geometry, socs, config, chunk=chunk,
-                                    normalize=normalize, w_sum=w_sum,
-                                    mask3d=mask3d)[0]
-    else:
-        pts = source_points(src_np)
-        shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
-        max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
-        for b, geometry in enumerate(geometries):
-            images[b] = _exact_image(
-                mask_spectrum(_thick(geometry, config, mask3d), config,
-                              solver=solver), aberrations,
-                shifts, weights, config, device=device, solver=solver,
-                chunk=chunk, normalize=normalize, max_abs_shift=max_abs_shift,
-                polarization=polarization, apodize=apodize,
-                chromatic=chromatic)
-    if perturb is not None and perturb.active:
-        images = apply_perturbation(images, perturb, config.pixel_size)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with span("litho.simulate_batch"):
+        geometries = to_tensor(geometries, device=device, dtype=torch.float32)
+        if geometries.ndim != 3:
+            raise ValueError(f"expected (B, n, n) geometries, got "
+                             f"{tuple(geometries.shape)}")
+        src_np, aberrations = _host_inputs(source_map, aberrations)
+        polarization = _polarization_key(polarization)
+        images = torch.empty_like(geometries)
+        if solver == "socs":
+            with span("litho.simulate_batch.kernels"):
+                socs = _socs_kernels_cached(
+                    config, src_np, aberrations, socs_rank, device=device,
+                    polarization=polarization, apodize=apodize,
+                    chromatic=chromatic)[0]
+            w_sum = float(src_np.sum(dtype=np.float64))
+            for b, geometry in enumerate(geometries):
+                images[b] = _socs_apply(geometry, socs, config, chunk=chunk,
+                                        normalize=normalize, w_sum=w_sum,
+                                        mask3d=mask3d)
+        else:
+            pts = source_points(src_np)
+            shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
+            max_abs_shift = int(np.abs(shifts).max()) if shifts.size else 0
+            for b, geometry in enumerate(geometries):
+                images[b] = _exact_image(
+                    mask_spectrum(_thick(geometry, config, mask3d), config,
+                                  solver=solver), aberrations,
+                    shifts, weights, config, device=device, solver=solver,
+                    chunk=chunk, normalize=normalize,
+                    max_abs_shift=max_abs_shift, polarization=polarization,
+                    apodize=apodize, chromatic=chromatic)
+        if perturb is not None and perturb.active:
+            images = apply_perturbation(images, perturb, config.pixel_size)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     return images
 
 
@@ -696,7 +738,7 @@ def film_socs_stack(
     geometry = _mask_geometry(mask, device)
     total = float(source_total) if source_total is not None else 1.0
     planes = [_socs_apply(geometry, socs, config, chunk=chunk,
-                          normalize=normalize, w_sum=total, mask3d=mask3d)[0]
+                          normalize=normalize, w_sum=total, mask3d=mask3d)
               for socs in kernels]
     stack = torch.stack(planes)
     if device.type == "cuda":

@@ -1,21 +1,29 @@
-"""Device description, stage timing and profiler traces.
+"""Device description, stage timing, profiler traces, and the port's spans
+and counters.
 
 Port of ``lithographysimulator_tpu/utils/profiling.py``. On a CUDA device a
 stage is timed with CUDA events recorded on the current stream, so the time
 is the device's own and the host does not wait inside the stage; on the CPU
 with ``time.perf_counter``. :func:`trace` and :func:`annotate` are the JAX
-package's ``jax.profiler`` helpers on ``torch.profiler``.
+package's ``jax.profiler`` helpers on ``torch.profiler``. The spans and
+counters (:func:`span`, :class:`Counters`, :func:`recording`, ...) are
+:mod:`.._spans`'s, re-exported here: an operator gets them by tracing with
+:func:`trace` or with a ``torch.profiler`` of their own.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import json
 import logging
 import time
 from pathlib import Path
 
 import torch
+
+from .._spans import (Counters, current_request, end_span,  # noqa: F401
+                      recording, request_scope, reset, span, stamp)
 
 logger = logging.getLogger("lithographysimulator_tpu_torch")
 
@@ -72,7 +80,9 @@ class StageTimer:
 def trace(log_dir):
     """Capture a ``torch.profiler`` trace (host, and the card's kernels
     where there is one) around a block and write it to ``log_dir`` as a
-    Chrome trace (``trace.json``; view it in Perfetto or chrome://tracing).
+    Chrome trace (``trace.json``; view it in Perfetto or chrome://tracing),
+    with the port's spans and counter tallies of the block beside it
+    (``spans.json``, :func:`recording`).
 
     >>> with trace("litho-trace"):
     ...     image = simulate(...)
@@ -84,19 +94,25 @@ def trace(log_dir):
         activities.append(ProfilerActivity.CUDA)
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
+    reset()
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+    (out / "spans.json").write_text(json.dumps(recording()))
 
 
 def annotate(name: str):
-    """Decorator: label a function's work as the range ``name`` in profiler
-    traces (``torch.profiler.record_function``)."""
+    """Decorator: label a function's work as the span ``name`` in profiler
+    traces and in the recording (:func:`span`). ``bench.`` names belong to
+    the benchmark's own spans and are refused."""
+    if name.startswith("bench."):
+        raise ValueError(f"span name {name!r}: 'bench.' names are the "
+                         "benchmark's")
 
     def wrap(fn):
         @functools.wraps(fn)
         def inner(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            with span(name):
                 return fn(*args, **kwargs)
 
         return inner

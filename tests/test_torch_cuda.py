@@ -508,3 +508,87 @@ def test_every_kernel_launches_on_each_visible_card():
         ref = ik.column_intensity_int8_plain(*y, args[2], args[3], weights)
         assert img.device == dev
         assert _nrms(img.cpu(), ref.cpu()) < TOL
+
+
+def _traced_device(call):
+    """``call()`` under torch.profiler (host and card): the union of the
+    card's operation intervals in ns, the names of the card's operations,
+    the port's span names among the host's events, and the port's span
+    recording."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lithographysimulator_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    device, host = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CPU:
+            host.append(ev.name())
+        else:
+            device.append((ev.start_ns(), ev.end_ns(), ev.name()))
+    busy, end = 0, None
+    for s, e, _ in sorted(device):
+        if end is None or s > end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    return (busy, [name for _, _, name in device],
+            [name for name in host if name.startswith("litho.")],
+            profiling.recording()["spans"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["simulate", "tiled"])
+def test_spans_cast_no_device_shadow(call, monkeypatch):
+    """The port's spans enter a trace as host events only: with spans on,
+    no card event bears a ``litho.`` name, and the union of the card's
+    operation intervals of a 1024^2 simulate (rank 64) or a 2048^2 chip
+    through 1024^2 tiles matches the same call traced with spans off
+    (three runs each, in turns) within the runs' own spread."""
+    import types
+
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch import _spans
+
+    dev = _cuda()
+    cfg = lt.OpticsConfig(pixel_number=1024)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    x = np.arange(2048)
+    chip = np.broadcast_to(((x // 8) % 16 == 0).astype(np.float32),
+                           (2048, 2048)).copy()
+    if call == "simulate":
+        mask = lt.Mask(geometry=torch.as_tensor(chip[:1024, :1024], device=dev),
+                       config=cfg)
+
+        def run():
+            lt.simulate(mask, src, device=dev, solver="socs", socs_rank=64)
+        root = "litho.simulate"
+    else:
+        socs = lt.randomized_socs(
+            lt.pupil_function(np.zeros(5), cfg, device=dev), src, cfg, rank=64)
+        chip_dev = torch.as_tensor(chip, device=dev)
+
+        def run():
+            lt.tiled_socs_image(chip_dev, socs, cfg, halo=96)
+        root = "litho.tiled"
+    run()  # warm: the library, the kernel set, every shape
+    on_busy, off_busy = [], []
+    off = types.SimpleNamespace(_is_profiler_enabled=False)
+    for _ in range(3):
+        busy, device_names, host_spans, spans = _traced_device(run)
+        assert not [n for n in device_names if n.startswith("litho.")]
+        assert root in host_spans and root in {s["name"] for s in spans}
+        on_busy.append(busy)
+        with monkeypatch.context() as m:
+            m.setattr(_spans, "_PROFILER", off)
+            busy, _, host_spans, spans = _traced_device(run)
+        assert not host_spans and not spans
+        off_busy.append(busy)
+    spread = max(max(on_busy) - min(on_busy), max(off_busy) - min(off_busy))
+    print(f"{call}: device busy ns with spans {sorted(on_busy)}, "
+          f"without {sorted(off_busy)}")
+    assert abs(np.median(on_busy) - np.median(off_busy)) <= spread + 0.01 * np.median(off_busy)

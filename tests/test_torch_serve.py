@@ -283,6 +283,52 @@ def test_health(server):
     assert "live_programs" not in payload  # D12
 
 
+def test_health_counts_the_cache_and_the_launches(server):
+    """/health adds the SOCS kernel-set cache's hits, misses and evictions
+    and the int8 launches by kernel (none on the CPU) to its keys; a SOCS
+    request's look-up shows among them."""
+    before = _get(server, "/health")[1]
+    keys = ("socs_cache_hits", "socs_cache_misses", "socs_cache_evictions")
+    assert all(isinstance(before[k], int) and before[k] >= 0 for k in keys)
+    assert set(before["int8_launches"]) == {
+        "window_product_limbs", "row_limb_gemm", "row_requantize",
+        "column_intensity"}
+    status, _ = _post(server, "/simulate", _simulate_body(
+        _demo_mask(), solver="socs", socs_rank=8))
+    assert status == 200
+    after = _get(server, "/health")[1]
+    assert (after["socs_cache_hits"] + after["socs_cache_misses"]
+            > before["socs_cache_hits"] + before["socs_cache_misses"])
+
+
+def test_a_served_request_carries_its_id_on_its_spans(server):
+    """Under a profiler, one /simulate's read, decode, queue and encode
+    spans share its request id, and the batch span that ran it lists that
+    id, with its coalescing window and its run inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lithographysimulator_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        status, _ = _post(server, "/simulate", _simulate_body(_demo_mask()))
+    assert status == 200
+    spans = profiling.recording()["spans"]
+    wire = [s for s in spans if s["name"] in (
+        "litho.serve.read", "litho.serve.decode", "litho.serve.queue",
+        "litho.serve.encode")]
+    assert {s["name"] for s in wire} == {"litho.serve.read", "litho.serve.decode",
+                                         "litho.serve.queue", "litho.serve.encode"}
+    (rid,) = {s["request"] for s in wire}
+    assert rid is not None
+    (batch,) = [s for s in spans if s["name"] == "litho.serve.batch"]
+    assert batch["attrs"] == {"size": 1, "requests": [rid]}
+    inside = {s["name"] for s in spans if s["parent"] == batch["id"]}
+    assert inside == {"litho.serve.batch.window", "litho.serve.batch.run"}
+    (queue,) = [s for s in wire if s["name"] == "litho.serve.queue"]
+    assert queue["start_ns"] <= batch["end_ns"] and queue["end_ns"] <= batch["end_ns"]
+
+
 def test_entry_points_default_to_the_card():
     svc = pserve.LithoService(batching=False)
     assert svc.device == torch.device("cuda")

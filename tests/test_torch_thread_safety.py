@@ -5,7 +5,10 @@ batch worker and job runner (CPU; no nvcc, no card).
   under one lock, each compiler into a temporary file of its own thread;
 * the SOCS kernel-set cache (``simulate._SOCS_BUILD_CACHE``) is looked up,
   filled and evicted under its lock;
-* the launch counter (``intensity_int8.count_launch``) loses no launch.
+* the launch counter (``intensity_int8.count_launch``) loses no launch;
+* the port's counter store (``_spans.Counters``) keeps exact totals and
+  window tallies under 8 threads, and each thread's spans nest under its
+  own parents.
 
 In each race the shared step yields the interpreter to the other thread
 (``time.sleep(0)``) at the point where an unguarded read-modify-write or
@@ -13,6 +16,7 @@ iteration would be interleaved.
 """
 
 import importlib
+import sys
 import threading
 import time
 from pathlib import Path
@@ -23,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from lithographysimulator_tpu_torch import OpticsConfig
+from lithographysimulator_tpu_torch.utils import profiling
 from lithographysimulator_tpu_torch.io import native
 from lithographysimulator_tpu_torch.ops.kernels import build
 from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
@@ -161,3 +166,63 @@ def test_launch_counter_loses_no_launch(monkeypatch):
 
     assert all(_together(launch, threads=4))
     assert ik.LAUNCHES["row_limb_gemm"] == 4 * per_thread
+
+
+def test_counters_stay_exact_under_eight_threads():
+    """8 threads add to one group and launch through ``count_launch``
+    while a trace records, with a short switch interval: the totals, the
+    window tallies and ``LAUNCHES`` lose nothing, and
+    ``reset_launch_counts`` zeroes the same dict the store counts in."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = profiling.Counters("race", ("calls",))
+    per_thread = 2000
+    ik.reset_launch_counts()
+    launches = ik.LAUNCHES
+
+    def add():
+        for _ in range(per_thread):
+            counts.add("calls")
+            ik.count_launch("column_intensity")
+        return True
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert all(_together(add, threads=8))
+    finally:
+        sys.setswitchinterval(interval)
+    tally = profiling.recording()["counters"]
+    assert counts.totals["calls"] == tally["race.calls"] == 8 * per_thread
+    assert tally["int8_launches.column_intensity"] == 8 * per_thread
+    assert ik.LAUNCHES is launches and launches["column_intensity"] == 8 * per_thread
+    ik.reset_launch_counts()
+    assert set(ik.LAUNCHES.values()) == {0}
+
+
+def test_each_threads_spans_nest_under_its_own_parents():
+    from torch.profiler import ProfilerActivity, profile
+
+    def nest():
+        for _ in range(200):
+            with profiling.span("litho.outer"):
+                with profiling.span("litho.inner"):
+                    time.sleep(0)
+        return threading.get_ident()
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        idents = _together(nest, threads=8)
+    spans = profiling.recording()["spans"]
+    by_id = {s["id"]: s for s in spans}
+    assert len(by_id) == len(spans) == 8 * 400
+    assert {s["thread"] for s in spans} == set(idents)
+    for s in spans:
+        if s["name"] == "litho.inner":
+            parent = by_id[s["parent"]]
+            assert parent["name"] == "litho.outer"
+            assert parent["thread"] == s["thread"]
+        else:
+            assert s["parent"] is None
