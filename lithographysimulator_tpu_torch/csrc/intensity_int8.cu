@@ -46,31 +46,47 @@
 // design feeds the tensor cores:
 //   * dots: wgmma.mma_async m64n64k32 s8.s8 -> s32 from shared memory, 6 per
 //     32-deep K step into three int32 accumulators S0, S1, S2 (3 into two in
-//     FAST); the int32 sums are exact, so the kernels match their plain
-//     versions up to f32 rounding order in the epilogue. No branch surrounds
-//     the wgmma (ptxas would serialize them), so the last slab also runs its
-//     zero-filled steps past kp;
+//     FAST); the int32 sums are exact. No branch surrounds the wgmma (ptxas
+//     would serialize them), so the last slab also runs its zero-filled
+//     steps past kp. A slab's 24 wgmma are one commit group, waited for
+//     whole. Shared-memory bytes: a wgmma reads 2 KB of A and 2 KB of B for
+//     262,144 operations, 128 bytes a clock at the peak (8,192 operations a
+//     clock an SM), beside the ring's TMA writes (72 KB a slab, 47 bytes a
+//     clock at the peak). Measured on the H100, that is not the limit:
+//     wgmma alone, both operands from shared memory, runs at 100% of the
+//     peak a clock, and A from registers (ldmatrix once a limb and step, 96
+//     bytes a clock) times the same in these kernels. Nor is the wait for a
+//     slab's group: keeping the last step in flight across slabs
+//     (wait_group 1) makes ptxas insert waits of its own (C7517);
 //   * registers: the 3M epilogue carries only d = m1 - m2 and s = m1 + m2
 //     across the planes (imag = m3 - s), beside the f32 image accumulator in
 //     column_intensity: 3 f32 + 3 int32 tiles of 64 x 64 are 192 registers a
 //     thread, so one warpgroup owns one 64 x 64 tile and two warpgroups
 //     (255 registers each, no spills) fill an SM's register file;
-//   * copies: the limit after the dots is the traffic from L2 into shared
-//     memory and the cost of issuing it (per-thread cp.async copies with a
-//     block-wide barrier per slab left the tensor cores waiting). So the two
-//     warpgroups of a block share one 128 x 64 tile (they read the same B
-//     slab), and one thread keeps a ring of 3 K slabs (128 bytes deep, all
-//     limbs of both operands, 72 KB each) in flight with TMA: one box per
-//     operand per slab, 128-byte swizzled as wgmma reads it, zero-filled past
-//     the rows and past kp (zero limbs are exact), completion counted on an
-//     mbarrier; consumers release a slot on a second mbarrier. No
+//   * copies: the two warpgroups of a block share one 128 x 64 tile (they
+//     read the same B slab), and a ring of 3 K slabs (128 bytes deep, all
+//     limbs of both operands, 72 KB each) is kept in flight with TMA: one
+//     box per operand per slab, 128-byte swizzled as wgmma reads it,
+//     zero-filled past the rows and past kp (zero limbs are exact),
+//     completion counted on an mbarrier. With the wgmma removed the same
+//     loads take 80-87% of a kernel's time (9 TB/s from L2 at n = 1024):
+//     delivering the slabs, not the tensor cores, sets the pace. So no
+//     thread ever waits for a slot to be released: each warp counts itself
+//     on the slot's release count once its wgmma on the slab have retired,
+//     and the warp that completes the count refills the slot at once. No
 //     per-thread address math and no block-wide barrier per slab. The slab
 //     sequence runs on across the 3M planes (and, in column_intensity, the
 //     batch entries), so a plane's epilogue overlaps the next slabs' loads;
+//   * epilogue: each thread reads its 2 row and 16 column scales once a
+//     plane, and row_limb_gemm writes its two planes as 8-byte pairs of
+//     columns where w is even, so a quad of threads fills a 32-byte sector
+//     of a row (single floats fill half-sectors: about 10% of the kernel);
 //   * occupancy: 221 KB of shared memory and 256 threads make one block an
 //     SM; at n = 1024 the 128 x 64 tiles of column_intensity are 128 blocks
 //     for 132 SMs. The b loop of column_intensity stays in the block, in
-//     order and without atomics: the image is deterministic.
+//     order and without atomics: the image is deterministic. A launch is one
+//     block a tile: blocks that each walk a fixed share of the tiles ran
+//     slower than the hardware's own handing out of blocks to free SMs.
 // The two limb quantizers, row_requantize and window_product_limbs, are
 // bound by bytes (one read of their f32 or complex input, one write of 9
 // limb planes) and share the split: a thread splits 16 consecutive values
@@ -95,7 +111,9 @@
 // multiplies only by powers of two and subtracts exactly representable
 // values, so contraction cannot change it, and the complex product is
 // written with explicit roundings: the quantizers give the plain versions'
-// limbs bit for bit. The dequantize/3M epilogues differ from the plain
+// limbs bit for bit. The dequantize/3M epilogues are written with explicit
+// roundings too (limb_sum and the plane folds), so their results do not
+// depend on the compiler's contraction choices; they differ from the plain
 // versions only in f32 rounding order (compared by tolerance).
 
 #include <cuda.h>  // CUtensorMap types; the encoder is found via the runtime
@@ -117,7 +135,8 @@ constexpr int ACC = TILE * TILE / 128;     // accumulator registers a thread
 constexpr int A_LIMB = BM * KS;            // bytes of one limb of the A slab
 constexpr int B_LIMB = BN * KS;
 constexpr int STAGE_BYTES = 3 * (A_LIMB + B_LIMB);
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8;  // + barriers
+// + a full barrier and a release count (8 bytes each) a slot
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8;
 constexpr int SEG = 16;                    // values one quantizer thread splits
 constexpr int REQ_THREADS = 256;           // row_requantize: least block size
 constexpr int REQ_MAX_THREADS = 512;       // one thread per SEG of a row
@@ -164,10 +183,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
 
 // Waits for the phase of parity `parity` to complete. A wait that outlasts
 // ~10 s of clocks traps (a launch error) instead of hanging the device.
@@ -252,6 +267,12 @@ __device__ __forceinline__ void st_cluster(int* p, int rank, int v) {
                : "memory");
 }
 
+// Orders this thread's earlier accesses of shared memory before its later
+// asynchronous-proxy ones (TMA writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -324,12 +345,15 @@ struct Pass {
 // over the whole kp, handed to epilogue(pass, s0, s1, s2) in the wgmma
 // accumulator layout (acc_row, acc_col).
 //
-// Thread 0 produces: it keeps STAGES slabs in flight, one TMA box per operand
+// A ring of STAGES slots keeps slabs in flight, one TMA box per operand
 // holding all limbs of a KS-deep slab (zero-filled past the rows and past kp:
-// zero limbs are exact), and refills a slot once every warp has released it
-// on the slot's `empty` barrier. Both warpgroups consume: they wait on the
-// slot's `full` barrier, run 6 wgmma per 32-deep step (3 in FAST) and
-// release the slot.
+// zero limbs are exact); thread 0 fills it first. Both warpgroups consume:
+// they wait on the slot's `full` barrier, run 6 wgmma per 32-deep step (3 in
+// FAST), and each warp, once its wgmma have retired, counts itself on the
+// slot's release count; the warp whose count completes it (the block's
+// last) refills the slot with the slab STAGES later. No thread waits for a
+// release, nor for its own count's result, so neither warpgroup's next
+// wgmma waits on the other's progress.
 template <bool FAST, class Passes, class Epilogue>
 __device__ __forceinline__ void limb_mainloop(const CUtensorMap& map_a,
                                               const CUtensorMap& map_b,
@@ -343,7 +367,8 @@ __device__ __forceinline__ void limb_mainloop(const CUtensorMap& map_a,
   const int wg = threadIdx.x / 128;
   const uint32_t stages = smem_addr(smem);
   const uint32_t full = stages + STAGES * STAGE_BYTES;
-  const uint32_t empty = full + STAGES * 8;
+  int* released =
+      reinterpret_cast<int*>(smem + STAGES * STAGE_BYTES + 8 * STAGES);
   auto slab_a = [&](int s) { return stages + s * STAGE_BYTES; };
   auto slab_b = [&](int s) { return stages + s * STAGE_BYTES + 3 * A_LIMB; };
   auto produce = [&](int t) {
@@ -357,7 +382,7 @@ __device__ __forceinline__ void limb_mainloop(const CUtensorMap& map_a,
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, THREADS / 32);
+      released[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int t = 0; t < STAGES && t < total; ++t) produce(t);
@@ -368,6 +393,18 @@ __device__ __forceinline__ void limb_mainloop(const CUtensorMap& map_a,
 #pragma unroll
   for (int i = 0; i < ACC; ++i) s0[i] = s1[i] = s2[i] = 0;
 
+  // A warp's lane 0 counts itself on a slot without waiting for the count:
+  // it reads the old count back one slab later, once the next slab's wgmma
+  // are issued, and refills the slot if its count was the last.
+  int counted = -1, old_count = 0;  // the slab counted, the count before
+  auto settle = [&]() {
+    if (counted >= 0 && old_count % (THREADS / 32) == THREADS / 32 - 1 &&
+        counted + STAGES < total) {
+      fence_proxy_async();
+      produce(counted + STAGES);
+    }
+    counted = -1;
+  };
   for (int t = 0; t < total; ++t) {
     const int s = t % STAGES;
     const int parity = (t / STAGES) & 1;
@@ -396,18 +433,21 @@ __device__ __forceinline__ void limb_mainloop(const CUtensorMap& map_a,
       }
     }
     wgmma_commit();
+    if (threadIdx.x % 32 == 0) settle();  // the slab before's count
     wgmma_wait_all();
     fence_operand(s0);
     fence_operand(s1);
     if (!FAST) fence_operand(s2);
+    // The wait above returned once this warp's wgmma had read the slot, so
+    // its count comes after its reads; the refill is issued after all counts.
     __syncwarp();
-    if (threadIdx.x % 32 == 0) mbar_arrive(empty + 8 * s);
-    if (threadIdx.x == 0 && t + STAGES < total) {
-      mbar_wait(empty + 8 * s, parity);
-      produce(t + STAGES);
+    if (threadIdx.x % 32 == 0) {
+      old_count = atomicAdd(released + s, 1);
+      counted = t;
     }
     if (kk == ksteps - 1) epilogue(t / ksteps, s0, s1, s2);
   }
+  if (threadIdx.x % 32 == 0) settle();
 }
 
 // Row and column of accumulator register i within the block tile: register i
@@ -422,30 +462,47 @@ __device__ __forceinline__ int acc_col(int i) {
   return 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2;
 }
 
-// sA[row] * sB[col] * (S0 + S1/256 (+ S2/65536)) for register i.
+// S0 + S1/256 (+ S2/65536) of register i as fma(S1, 2^-8, S0) (then
+// fma(S2, 2^-16, .)); the plane's value is m = that times sA[row] sB[col].
 template <bool FAST>
-__device__ __forceinline__ float dequant(const int (&s0)[ACC],
-                                         const int (&s1)[ACC],
-                                         const int (&s2)[ACC], int i, float sa,
-                                         float sb) {
-  float v = (float)s0[i] + (float)s1[i] * (1.0f / 256.0f);
-  if (!FAST) v += (float)s2[i] * (1.0f / 65536.0f);
-  return v * (sa * sb);
+__device__ __forceinline__ float limb_sum(const int (&s0)[ACC],
+                                          const int (&s1)[ACC],
+                                          const int (&s2)[ACC], int i) {
+  float v = __fmaf_rn((float)s1[i], 1.0f / 256.0f, (float)s0[i]);
+  if (!FAST) v = __fmaf_rn((float)s2[i], 1.0f / 65536.0f, v);
+  return v;
 }
 
-// Folds plane p's m into the carried tiles: d = m1 - m2 and s = m1 + m2;
-// at p == 2 returns imag = m3 - s (and real is d).
-__device__ __forceinline__ float fold_plane(int p, float m, float& d,
-                                            float& s) {
+// Folds plane 0 or 1's m = v k into the carried tiles: d = m1 after plane
+// 0; s = m1 + m2 and d = m1 - m2 after plane 1, each with one rounding of
+// the exact v k.
+__device__ __forceinline__ void fold_plane(int p, float v, float k, float& d,
+                                           float& s) {
   if (p == 0) {
-    d = m;
-  } else if (p == 1) {
-    s = d + m;
-    d = d - m;
+    d = __fmul_rn(v, k);
   } else {
-    return m - s;
+    s = __fmaf_rn(v, k, d);
+    d = __fmaf_rn(-v, k, d);
   }
-  return 0.0f;
+}
+
+// The scales of this thread's accumulator rows (ra[h]: register i has row
+// h = (i / 2) % 2) and columns (cb[c]: c = 2 (i / 4) + i % 2) of the tile at
+// (row0, col0), 0 past nr rows and nc columns.
+__device__ __forceinline__ void tile_scales(const float* sa, int nr,
+                                            const float* sb, int nc, int row0,
+                                            int col0, float (&ra)[2],
+                                            float (&cb)[ACC / 2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + acc_row(2 * h);
+    ra[h] = row < nr ? sa[row] : 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < ACC / 2; ++c) {
+    const int col = col0 + acc_col(4 * (c / 2) + c % 2);
+    cb[c] = col < nc ? sb[col] : 0.0f;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -476,19 +533,42 @@ row_limb_gemm_kernel(const __grid_constant__ CUtensorMap map_t,
   auto pass_of = [&](int p) { return Pass{0, b, p}; };
   auto epilogue = [&](int p, const int(&s0)[ACC], const int(&s1)[ACC],
                       const int(&s2)[ACC]) {
-    const float* sa = t_scales + (long)p * n;
-    const float* sb = x_scales + ((long)p * batch + b) * w;
+    float ra[2], cb[ACC / 2];
+    tile_scales(t_scales + (long)p * n, n, x_scales + ((long)p * batch + b) * w,
+                w, row0, col0, ra, cb);
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
+      const float v = limb_sum<FAST>(s0, s1, s2, i);
+      const float k = __fmul_rn(ra[i / 2 % 2], cb[2 * (i / 4) + i % 2]);
+      if (p < 2)
+        fold_plane(p, v, k, d[i], s[i]);
+      else
+        s[i] = __fsub_rn(__fmul_rn(v, k), s[i]);  // imag = m3 - s, kept in s
+    }
+    if (p < 2) return;
+    // yr = d, yi = imag. Where w is even, registers i and i + 1 (columns col,
+    // col + 1) leave as one 8-byte store each, and a quad of threads writes
+    // a whole 32-byte sector of a row.
+    const bool pairs = w % 2 == 0;
+#pragma unroll
+    for (int i = 0; i < ACC; i += 2) {
       const int row = row0 + acc_row(i);
       const int col = col0 + acc_col(i);
-      const float m = dequant<FAST>(s0, s1, s2, i, row < n ? sa[row] : 0.0f,
-                                    col < w ? sb[col] : 0.0f);
-      const float imag = fold_plane(p, m, d[i], s[i]);
-      if (p == 2 && row < n && col < w) {
-        const long o = ((long)b * n + row) * w + col;
-        yr[o] = d[i];
-        yi[o] = imag;
+      const long o = ((long)b * n + row) * w + col;
+      if (row >= n) continue;
+      if (pairs) {
+        if (col < w) {
+          *reinterpret_cast<float2*>(yr + o) = make_float2(d[i], d[i + 1]);
+          *reinterpret_cast<float2*>(yi + o) = make_float2(s[i], s[i + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (col + j < w) {
+            yr[o + j] = d[i + j];
+            yi[o + j] = s[i + j];
+          }
+        }
       }
     }
   };
@@ -521,17 +601,21 @@ column_intensity_kernel(const __grid_constant__ CUtensorMap map_y,
   auto epilogue = [&](int pass, const int(&s0)[ACC], const int(&s1)[ACC],
                       const int(&s2)[ACC]) {
     const int b = pass / 3, p = pass % 3;
-    const float* sa = y_scales + ((long)p * batch + b) * n;
-    const float* sb = t_scales + (long)p * n;
+    float ra[2], cb[ACC / 2];
+    tile_scales(y_scales + ((long)p * batch + b) * n, n, t_scales + (long)p * n,
+                n, row0, col0, ra, cb);
     const float wb = weights[b];
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
-      const int row = row0 + acc_row(i);
-      const int col = col0 + acc_col(i);
-      const float m = dequant<FAST>(s0, s1, s2, i, row < n ? sa[row] : 0.0f,
-                                    col < n ? sb[col] : 0.0f);
-      const float ei = fold_plane(p, m, d[i], s[i]);
-      if (p == 2) acc[i] += wb * (d[i] * d[i] + ei * ei);
+      const float v = limb_sum<FAST>(s0, s1, s2, i);
+      const float k = __fmul_rn(ra[i / 2 % 2], cb[2 * (i / 4) + i % 2]);
+      if (p < 2) {
+        fold_plane(p, v, k, d[i], s[i]);
+      } else {  // acc += wb (er^2 + ei^2), er = d, ei = m3 - s
+        const float ei = __fmaf_rn(v, k, -s[i]);
+        const float e2 = __fmaf_rn(ei, ei, __fmul_rn(d[i], d[i]));
+        acc[i] = __fmaf_rn(wb, e2, acc[i]);
+      }
     }
   };
   limb_mainloop<FAST>(map_y, map_t, smem, 3 * batch, kp, row0, col0, pass_of,

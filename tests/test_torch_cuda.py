@@ -99,6 +99,60 @@ def test_kernels_match_plain(b, n, w, fast):
     assert all(ik.LAUNCHES[k] == before[k] + 1 for k in before)
 
 
+def _gemm_operands(ik, dev, b, n, w):
+    """row_limb_gemm's operands and column_intensity's (Y's limbs from the
+    plain row_limb_gemm and row_requantize, weights from the seed)."""
+    args, _, rng = _operands(ik, dev, b, n, w)
+    y_limbs, y_scales = ik.row_requantize_plain(
+        *ik.row_limb_gemm_plain(*args), args[2].shape[-1])
+    weights = torch.as_tensor(rng.random(b).astype(np.float32), device=dev)
+    return args, (y_limbs, y_scales, args[2], args[3], weights)
+
+
+# The GEMM kernels at the edges of their grids and rings: more 128 x 64
+# tiles than the H100's 132 SMs and not a multiple of them (row_limb_gemm
+# 459 and column_intensity 162 at (3, 1152, 1088); 2048 and 512 at (4, 2048,
+# 2048)), fewer (the other three), a last 128-byte K slab partly zero-filled
+# (kp 1088, 224, 608, 320), batch 1 and batch 8, even and odd w.
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("b,n,w", [(3, 1152, 1088), (4, 2048, 2048), (2, 256, 200),
+                                   (1, 640, 600), (8, 384, 320), (2, 200, 131)])
+def test_gemm_tile_edges_match_plain(b, n, w, fast):
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    args, cargs = _gemm_operands(ik, dev, b, n, w)
+    yr, yi = ik.row_limb_gemm(*args, fast=fast)
+    pr, pi = ik.row_limb_gemm_plain(*args, fast=fast)
+    assert _nrms(torch.complex(yr, yi).cpu(), torch.complex(pr, pi).cpu()) < TOL
+    img = ik.column_intensity_int8(*cargs, fast=fast)
+    ref = ik.column_intensity_int8_plain(*cargs, fast=fast)
+    assert _nrms(img.cpu(), ref.cpu()) < TOL
+
+
+# Two launches on the same inputs give the same bits (one block sums an
+# output tile over (b, plane) in order, with no atomics, whichever warp
+# refills the ring), and a given `out` receives exactly out + the image: the
+# kernel adds its tile sum once.
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("b,n,w", [(3, 1152, 1088), (4, 1024, 1024)])
+def test_gemm_kernels_repeat_bit_for_bit(b, n, w, fast):
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    args, cargs = _gemm_operands(ik, dev, b, n, w)
+    first, second = (ik.row_limb_gemm(*args, fast=fast) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    img = ik.column_intensity_int8(*cargs, fast=fast)
+    assert torch.equal(img, ik.column_intensity_int8(*cargs, fast=fast))
+    base = torch.as_tensor(np.random.default_rng(n).random((n, n), np.float32),
+                           device=dev)
+    out = ik.column_intensity_int8(*cargs, fast=fast, out=base.clone())
+    assert torch.equal(out, base + img)
+
+
 # Rows wider than one thread a segment (kp > 16 * 512 = 8192): the kernel
 # loops over a row's segments; 16-byte loads (w % 4 == 0) and scalar ones.
 @pytest.mark.cuda

@@ -15,11 +15,13 @@ one source. A turn times row_limb_gemm, column_intensity and row_requantize,
 ctypes: device time by chip_smoke.time_ms (a CUDA graph of 10 back-to-back
 launches, replayed), the same inputs for every source, each result held to
 its plain PyTorch version (<= 1e-6 normalized RMS, dequantized for the two
-quantizers). Once per shape the chain that window_product_limbs replaces
-(the gather and product, then quantize_x) is timed in the same process.
-It prints each time with its share of the kernel's bound (chip_smoke.bound);
-the last line holds the same as JSON. It exits with an error where there is
-no CUDA device.
+quantizers) and to the first source's output bit for bit (the two GEMM
+kernels also in their FAST variant, untimed). Once per shape the chain that
+window_product_limbs replaces (the gather and product, then quantize_x) is
+timed in the same process. It prints each time with its share of the
+kernel's bound (chip_smoke.bound) and whether its bits equal the first
+source's; the last line holds the same as JSON. It exits with an error where
+there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -129,17 +131,17 @@ def main() -> int:
                 out["window_product_limbs"][0].data_ptr(),
                 out["window_product_limbs"][1].data_ptr(), batch, a.shape[0],
                 a.shape[1], a.shape[2], b.shape[0], b.shape[1], w, kp, stream()),
-            "row_limb_gemm": lambda lib: lib.row_limb_gemm(
+            "row_limb_gemm": lambda lib, fast=0: lib.row_limb_gemm(
                 tl.data_ptr(), ts.data_ptr(), xl.data_ptr(), xs.data_ptr(),
                 out["row_limb_gemm"][0].data_ptr(), out["row_limb_gemm"][1].data_ptr(),
-                batch, n, w, kp, 0, stream()),
+                batch, n, w, kp, fast, stream()),
             "row_requantize": lambda lib: lib.row_requantize(
                 yr_p.data_ptr(), yi_p.data_ptr(), out["row_requantize"][0].data_ptr(),
                 out["row_requantize"][1].data_ptr(), batch * n, w, kp, stream()),
-            "column_intensity": lambda lib: lib.column_intensity(
+            "column_intensity": lambda lib, fast=0: lib.column_intensity(
                 yl.data_ptr(), ys.data_ptr(), tl.data_ptr(), ts.data_ptr(),
                 wts.data_ptr(), out["column_intensity"][0].data_ptr(), batch, n,
-                kp, 0, stream()),
+                kp, fast, stream()),
         }
 
         def result(name):
@@ -150,6 +152,13 @@ def main() -> int:
                 return o[0].cpu().numpy()
             return dequant(*o)
 
+        first_bits = {}  # (kernel, fast) -> the first source's outputs as bytes
+
+        def same_bits(key, name):
+            got = [t.contiguous().view(torch.uint8).clone() for t in out[name]]
+            ref = first_bits.setdefault(key, got)
+            return all(torch.equal(a, b) for a, b in zip(ref, got))
+
         for turn, i in enumerate(turns):
             lib = libs[i]
             r = {"source": labels[i], "turn": turn, "shape": [batch, n, w]}
@@ -158,8 +167,8 @@ def main() -> int:
                 if getattr(lib, name, None) is None:
                     continue
 
-                def call(name=name):
-                    err = calls[name](lib)
+                def call(name=name, fast=0):
+                    err = calls[name](lib, fast) if fast else calls[name](lib)
                     assert err == 0, f"{name} launch error {err}"
 
                 out["column_intensity"][0].zero_()
@@ -169,11 +178,21 @@ def main() -> int:
                 if not e <= TOL:
                     raise SystemExit(f"{labels[i]} at {(batch, n, w)}: {name} "
                                      f"error {e:.3e} > {TOL}")
+                bits = {"3-limb": same_bits((name, 0), name)}
+                if name in ("row_limb_gemm", "column_intensity"):
+                    out["column_intensity"][0].zero_()
+                    call(fast=1)
+                    torch.cuda.synchronize()
+                    bits["fast"] = same_bits((name, 1), name)
                 ms = time_ms(torch, call)
                 r[f"{name}_ms"], r[f"{name}_nrms"] = ms, e
                 r[f"{name}_bound_ms"] = bounds[name]
+                for k, v in bits.items():
+                    r[f"{name}{'_fast' if k == 'fast' else ''}_bits_as_first"] = v
+                same = ", ".join(f"{k} bits {'==' if v else '!='} first"
+                                 for k, v in bits.items())
                 line.append(f"{name} {ms:.4f} ms ({100 * bounds[name] / ms:.1f}% "
-                            f"of bound, nRMS {e:.1e})")
+                            f"of bound, nRMS {e:.1e}; {same})")
             results.append(r)
             print(f"({batch}, {n}, {w}) {labels[i]}: " + "; ".join(line), flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
