@@ -11,7 +11,12 @@ Everything the reference spreads across four copies of grid code
 Grid conventions (shared-grid invariant of the whole framework):
 
 * sigma/pupil plane: sigma in [-2, 2), step ``4 / pixel_number``; the unit
-  pupil (r <= 1) occupies the central half of the array.
+  pupil (r <= 1) occupies the central half of the array. Its edge stands
+  for the spatial frequency ``pupil_na / wavelength``: 1 / wavelength by
+  default (the JAX package's and the upstream project's convention, which
+  leaves ``na`` out of the pupil's edge), NA / wavelength with
+  ``pupil_at_na`` (sigma and rho then in NA units, as lithographers state
+  them).
 * frequency (k) plane: identical to the sigma plane (``delta_k = 4/n``), which
   is why a source point at integer array offset shifts the pupil by an integer
   roll with no interpolation.
@@ -39,7 +44,8 @@ def nearest_pow2(value: float) -> int:
 class WavelengthScaling:
     """Gau'23 wavelength-scaling parameters (reference ``mask.py:67-72``).
 
-    beta = wavelength / (delta_k * pixel_size); N = nearest power of two;
+    beta = wavelength / (pupil_na * delta_k * pixel_size); N = nearest
+    power of two;
     epsilon = N / beta is the mask upsample factor that makes the FFT grid
     wavelength-consistent.
     """
@@ -89,6 +95,14 @@ class OpticsConfig:
     #: Applied at the pupil function, so it flows through every solver,
     #: the vector engine, SOCS builds, and metrology automatically.
     obscuration: float = 0.0
+    #: put the unit pupil's edge at spatial frequency NA / wavelength, so
+    #: that sigma, rho and a source's sigma are in NA units: beta =
+    #: wavelength / (NA delta_k pixel_size) and the direct solver's phase is
+    #: 2 pi NA / wavelength. False (the default) keeps the JAX package's and
+    #: the upstream project's convention, the edge at 1 / wavelength
+    #: whatever ``na`` says; ``na`` then enters only the defocus
+    #: conversion, the vector factors and the halo.
+    pupil_at_na: bool = False
 
     def __post_init__(self):
         if self.pixel_number < 2 or self.pixel_number % 2 != 0:
@@ -129,6 +143,12 @@ class OpticsConfig:
         return self.delta_k
 
     @property
+    def pupil_na(self) -> float:
+        """The numerical aperture of the unit pupil's edge: ``na`` with
+        ``pupil_at_na``, else 1."""
+        return self.na if self.pupil_at_na else 1.0
+
+    @property
     def pixel_bound(self) -> float:
         return self.pixel_number / 2 * self.pixel_size
 
@@ -139,7 +159,7 @@ class OpticsConfig:
 
     # --- wavelength scaling (Gau'23) --------------------------------------
     def wavelength_scaling(self) -> WavelengthScaling:
-        beta = self.wavelength / (self.delta_k * self.pixel_size)
+        beta = self.wavelength / (self.pupil_na * self.delta_k * self.pixel_size)
         fft_size = nearest_pow2(beta)
         return WavelengthScaling(beta=beta, fft_size=fft_size, epsilon=fft_size / beta)
 

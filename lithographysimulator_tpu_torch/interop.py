@@ -34,7 +34,10 @@ from .optimize import SMOProblem
 
 
 def _same_fields(cls, obj):
-    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+    """``cls`` with each field ``obj`` has; a field of the port's that
+    ``obj`` lacks (``OpticsConfig.pupil_at_na``) keeps its default."""
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)
+                  if hasattr(obj, f.name)})
 
 
 def config_from_jax(cfg) -> OpticsConfig:

@@ -20,6 +20,11 @@ Engines (:func:`resolve_engine`):
   accepted as an alias of ``int8``.
 
 Only ``matmul_precision='highest'`` exists: TF32 stays off.
+
+While a profiler trace records (:mod:`..utils.profiling`),
+:func:`accumulate_intensity` marks the per-call set-up of its windowed path
+(``litho.abbe.setup``: T0's planes, their limbs and the window starts), and
+it counts the fields it computes (``abbe.fields``, padding included).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+from .._spans import Counters, span
 from .._tensors import to_tensor
 from ..config import OpticsConfig
 from .fourier import centered_ifft2, crop_center, pad_center
@@ -43,6 +49,8 @@ from .resize import bilinear_resize
 
 Solver = Literal["gau23", "direct"]
 ENGINES = ("fft", "matmul", "int8", "int8_fast")
+
+_FIELD_COUNTS = Counters("abbe", ("fields",))
 
 
 def resolve_engine(engine: str, *, device, allowed=ENGINES) -> str:
@@ -292,7 +300,7 @@ def _fields_gau23(pupil_tiled, spectrum, shifts, fft_size, engine="fft"):
 
 def _fields_direct(pupil_tiled, spectrum, shifts, config):
     """(B, n, n) coherent fields via the separable direct transform
-    (constant -2i*pi/lambda)."""
+    (constant -2i*pi*pupil_na/lambda)."""
     prods = _rolled_products(pupil_tiled, spectrum, shifts)
     return separable_dft(prods, config, sign=-1, dtype=spectrum.dtype)
 
@@ -345,20 +353,21 @@ def accumulate_intensity(
     pupil_tiled = _tiled(pupil)
 
     if windowed and solver == "gau23":
-        w_win = _window_size(n)
-        lo = n // 4 - 1
-        t0 = _zoom_dft_window(n, fft_size)
-        t0r = torch.as_tensor(t0.real, dtype=torch.float32, device=device)
-        t0i = torch.as_tensor(t0.imag, dtype=torch.float32, device=device)
-        if engine in ("int8", "int8_fast"):
-            t_limbs, t_scales = prepare_t0_limbs(t0r, t0i)
-            spectrum = spectrum.contiguous()
-        one_pupil = pupil_tiled[None]  # (1, 2n, 2n): the array all windows read
-        # validated once on the host: no chunk checks them on the device
-        starts = torch.as_tensor(
-            check_window_starts(_window_starts(shifts, n, w_win, lo), w_win,
-                                pupil_tiled.shape, spectrum.shape),
-            device=device)
+        with span("litho.abbe.setup"):
+            w_win = _window_size(n)
+            lo = n // 4 - 1
+            t0 = _zoom_dft_window(n, fft_size)
+            t0r = torch.as_tensor(t0.real, dtype=torch.float32, device=device)
+            t0i = torch.as_tensor(t0.imag, dtype=torch.float32, device=device)
+            if engine in ("int8", "int8_fast"):
+                t_limbs, t_scales = prepare_t0_limbs(t0r, t0i)
+                spectrum = spectrum.contiguous()
+            one_pupil = pupil_tiled[None]  # (1, 2n, 2n): the array all windows read
+            # validated once on the host: no chunk checks them on the device
+            starts = torch.as_tensor(
+                check_window_starts(_window_starts(shifts, n, w_win, lo), w_win,
+                                    pupil_tiled.shape, spectrum.shape),
+                device=device)
 
     for c in range(0, p, chunk):
         s = shifts[c : c + chunk]
@@ -378,6 +387,7 @@ def accumulate_intensity(
         else:
             fields = _fields_direct(pupil_tiled, spectrum, s, config)
         acc = acc + torch.sum(w[:, None, None] * fields.abs() ** 2, dim=0)
+    _FIELD_COUNTS.add("fields", p)
     return acc
 
 

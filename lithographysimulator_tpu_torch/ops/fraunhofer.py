@@ -32,9 +32,10 @@ def trapezoid_weights(n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _dft_kernel_cached(config: OpticsConfig, sign: int) -> np.ndarray:
-    """``Kw[a, b] = exp(sign*2i*pi/lambda * k[a] * x[b]) * w[b]``, complex128."""
+    """``Kw[a, b] = exp(sign*2i*pi*pupil_na/lambda * k[a] * x[b]) * w[b]``,
+    complex128 (``pupil_na`` is 1 unless ``config.pupil_at_na``)."""
     grid = Grid(config)
-    c = sign * 2j * np.pi / config.wavelength
+    c = sign * 2j * np.pi * config.pupil_na / config.wavelength
     kernel = np.exp(c * grid.k[:, None] * grid.x[None, :])
     return kernel * trapezoid_weights(config.n)[None, :]
 
@@ -49,7 +50,7 @@ def separable_dft(field: torch.Tensor, config: OpticsConfig, sign: int,
 
 def spectrum_direct(geometry: torch.Tensor, config: OpticsConfig,
                     dtype=torch.complex64) -> torch.Tensor:
-    """Direct Fraunhofer mask spectrum (constant +2i*pi/lambda)."""
+    """Direct Fraunhofer mask spectrum (constant +2i*pi*pupil_na/lambda)."""
     return separable_dft(geometry, config, sign=+1, dtype=dtype)
 
 

@@ -22,6 +22,10 @@ image is the incoherent sum over components and polarization states:
 
     I = sum_p q_p sum_c AbbeIntensity(V_cp * P, M)
 
+While a profiler trace records, each pass is marked
+``litho.vector.component`` (attributes ``state``, the index of the Jones
+state, and ``component``, 0-2 for x, y, z).
+
 The factors are built on the host in float64, as in the JAX package (the
 JAX module imports jax, so the port keeps its own copy of this numpy half):
 the component-dedup of :mod:`.hopkins` compares them by exact equality.
@@ -34,6 +38,7 @@ import functools
 import numpy as np
 import torch
 
+from .._spans import span
 from .._tensors import to_tensor
 from ..config import OpticsConfig
 from ..grid import Grid
@@ -153,13 +158,14 @@ def vector_abbe_image(
     spec. One Abbe pass per (state, component): six for 'unpolarized', three
     for one Jones state, each on the int8 kernels on CUDA."""
     image = None
-    for weight, jones in polarization_states(polarization):
+    for state, (weight, jones) in enumerate(polarization_states(polarization)):
         comps = vector_pupils(pupil, config, jones, apodize=apodize,
                               device=device)
         for c in range(3):
-            part = weight * abbe_image_points(
-                spectrum, comps[c], shifts, weights, config, device=device,
-                solver=solver, chunk=chunk, normalize=normalize,
-                engine=engine, max_abs_shift=max_abs_shift)
-            image = part if image is None else image + part
+            with span("litho.vector.component", state=state, component=c):
+                part = weight * abbe_image_points(
+                    spectrum, comps[c], shifts, weights, config, device=device,
+                    solver=solver, chunk=chunk, normalize=normalize,
+                    engine=engine, max_abs_shift=max_abs_shift)
+                image = part if image is None else image + part
     return image

@@ -504,6 +504,10 @@ def simulate(
         "mask3d": _mask3d_report(mask3d),
         "wall_clock_s": elapsed,
     }
+    if config.pupil_at_na:
+        # the default convention (the edge at 1/wavelength) keeps the JAX
+        # package's report, key for key
+        report["pupil_edge"] = "NA/wavelength"
     if perturb is not None and perturb.active:
         report["perturbation"] = (
             f"MSD=({perturb.msd_x_nm},{perturb.msd_y_nm})nm "

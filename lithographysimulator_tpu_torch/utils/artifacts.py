@@ -23,8 +23,12 @@ from ..ops.hopkins import SOCSKernels, _host
 def config_fingerprint(config: OpticsConfig, **extra) -> str:
     """Stable short hash of an optical configuration (plus extra keys such
     as source or pupil descriptors) for cache file names; the same string
-    as the JAX package's for the same fields."""
-    payload = {"config": dataclasses.asdict(config), **extra}
+    as the JAX package's for the same fields. ``pupil_at_na``, which the
+    JAX package lacks, enters only when set."""
+    fields = dataclasses.asdict(config)
+    if not fields["pupil_at_na"]:
+        del fields["pupil_at_na"]
+    payload = {"config": fields, **extra}
     blob = json.dumps(payload, sort_keys=True, default=repr).encode()
     return hashlib.sha256(blob).hexdigest()[:16]
 
