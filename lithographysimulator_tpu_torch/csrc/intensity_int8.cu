@@ -1215,21 +1215,13 @@ int launch_tiles(dim3 grid, cudaStream_t stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C interface for ctypes: pointers and the stream as void*, sizes as
-// int; each returns cudaGetLastError() after its launch (0 = launched).
-extern "C" {
-
-int row_limb_gemm(const void* t_limbs, const void* t_scales,
-                  const void* x_limbs, const void* x_scales, void* yr,
-                  void* yi, int batch, int n, int w, int kp, int fast,
-                  void* stream) {
-  const int nl = fast ? 2 : 3;
-  CUtensorMap map_t, map_x;
-  if (int e = limb_map(&map_t, t_limbs, 1, n, kp, BM, nl)) return e;
-  if (int e = limb_map(&map_x, x_limbs, batch, w, kp, BN, nl)) return e;
-  auto s = static_cast<cudaStream_t>(stream);
+// The launches themselves, from encoded maps. The single-launch entries
+// below and int8_chunk_loop issue every kernel through these, so a chunk of
+// the loop makes the very launches that the four entries make.
+int issue_row_limb_gemm(const CUtensorMap& map_t, const void* t_scales,
+                        const CUtensorMap& map_x, const void* x_scales,
+                        void* yr, void* yi, int batch, int n, int w, int kp,
+                        int fast, cudaStream_t s) {
   auto ts = static_cast<const float*>(t_scales);
   auto xs = static_cast<const float*>(x_scales);
   auto o_r = static_cast<float*>(yr);
@@ -1246,8 +1238,9 @@ int row_limb_gemm(const void* t_limbs, const void* t_scales,
 // keeps its one segment in registers (a 512-thread bound leaves 128
 // registers a thread; at 1024 threads the 64-register cap spilled); wider
 // rows take the WIDE kernel.
-int row_requantize(const void* yr, const void* yi, void* y_limbs,
-                   void* y_scales, int rows, int w, int kp, void* stream) {
+int issue_row_requantize(const void* yr, const void* yi, void* y_limbs,
+                         void* y_scales, int rows, int w, int kp,
+                         cudaStream_t s) {
   if (kp % 32 || kp < w) return (int)cudaErrorInvalidValue;
   const int segs = kp / SEG;
   const bool wide = segs > REQ_MAX_THREADS;
@@ -1256,7 +1249,6 @@ int row_requantize(const void* yr, const void* yi, void* y_limbs,
                                             : (segs + 31) / 32 * 32;
   const int per_block = wide ? 1 : threads / segs;
   const int grid = (rows + per_block - 1) / per_block;
-  auto s = static_cast<cudaStream_t>(stream);
   auto r = static_cast<const float*>(yr);
   auto i = static_cast<const float*>(yi);
   auto l = static_cast<int8_t*>(y_limbs);
@@ -1271,21 +1263,24 @@ int row_requantize(const void* yr, const void* yi, void* y_limbs,
   return (int)cudaGetLastError();
 }
 
-int window_product_limbs(const void* a, const void* b, const void* starts,
-                         void* x_limbs, void* x_scales, int batch, int a_batch,
-                         int ha, int wa, int hb, int wb, int w, int kp,
-                         void* stream) {
-  if (kp % 32 || kp < w || w < 1 || (a_batch != 1 && a_batch != batch))
-    return (int)cudaErrorInvalidValue;
-  WplPlan plan;
-  if (int e = wpl_plan(a, b, wa, wb, w, kp, &plan)) return e;
-  CUtensorMap map_a{}, wide_a{}, map_b{}, wide_b{};  // per-thread: unread
-  if (plan.tma) {
-    if (int e = window_map(&map_a, a, a_batch, ha, wa, WPL_COLS)) return e;
-    if (int e = window_map(&wide_a, a, a_batch, ha, wa, WPL_PITCH)) return e;
-    if (int e = window_map(&map_b, b, 1, hb, wb, WPL_COLS)) return e;
-    if (int e = window_map(&wide_b, b, 1, hb, wb, WPL_PITCH)) return e;
-  }
+// The TMA maps of window_product_limbs' operands, narrow and wide boxes of
+// each; on the per-thread path they stay zero and are never read.
+struct WplMaps {
+  CUtensorMap map_a{}, wide_a{}, map_b{}, wide_b{};
+};
+
+int wpl_map_pair(CUtensorMap* narrow, CUtensorMap* wide, const void* base,
+                 int arrays, int rows, int cols) {
+  if (int e = window_map(narrow, base, arrays, rows, cols, WPL_COLS)) return e;
+  return window_map(wide, base, arrays, rows, cols, WPL_PITCH);
+}
+
+int issue_window_product_limbs(const WplPlan& plan, const WplMaps& maps,
+                               const void* a, const void* b,
+                               const void* starts, void* x_limbs,
+                               void* x_scales, int batch, int a_batch, int ha,
+                               int wa, int hb, int wb, int w, int kp,
+                               cudaStream_t s) {
   auto kernel = plan.tma ? window_product_limbs_kernel<true>
                          : window_product_limbs_kernel<false>;
   if (int e = raise_smem(kernel, plan.tma)) return e;
@@ -1293,7 +1288,7 @@ int window_product_limbs(const void* a, const void* b, const void* starts,
   config.gridDim = dim3(plan.cluster, batch, (w + WPL_COLS - 1) / WPL_COLS);
   config.blockDim = dim3(plan.threads);
   config.dynamicSmemBytes = plan.smem;
-  config.stream = static_cast<cudaStream_t>(stream);
+  config.stream = s;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
   cluster[0].val.clusterDim.x = plan.cluster;
@@ -1302,11 +1297,81 @@ int window_product_limbs(const void* a, const void* b, const void* starts,
   config.attrs = cluster;
   config.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &config, kernel, map_a, wide_a, map_b, wide_b, static_cast<const float2*>(a),
-      static_cast<const float2*>(b), static_cast<const int*>(starts),
-      static_cast<int8_t*>(x_limbs), static_cast<float*>(x_scales), batch,
-      a_batch, ha, wa, hb, wb, w, kp, plan.segs_per_block, plan.slots);
+      &config, kernel, maps.map_a, maps.wide_a, maps.map_b, maps.wide_b,
+      static_cast<const float2*>(a), static_cast<const float2*>(b),
+      static_cast<const int*>(starts), static_cast<int8_t*>(x_limbs),
+      static_cast<float*>(x_scales), batch, a_batch, ha, wa, hb, wb, w, kp,
+      plan.segs_per_block, plan.slots);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+int issue_column_intensity(const CUtensorMap& map_y, const void* y_scales,
+                           const CUtensorMap& map_t, const void* t_scales,
+                           const void* weights, void* out, int batch, int n,
+                           int kp, int fast, cudaStream_t s) {
+  auto ys = static_cast<const float*>(y_scales);
+  auto ts = static_cast<const float*>(t_scales);
+  auto wt = static_cast<const float*>(weights);
+  auto o = static_cast<float*>(out);
+  const dim3 grid = tiles(n, n);
+  if (fast)
+    return launch_tiles<column_intensity_kernel<true>>(
+        grid, s, map_y, ys, map_t, ts, wt, o, batch, n, kp);
+  return launch_tiles<column_intensity_kernel<false>>(
+      grid, s, map_y, ys, map_t, ts, wt, o, batch, n, kp);
+}
+
+// One chunk of int8_chunk_loop, as its caller writes the table: the address
+// of the chunk's first array of a and how many arrays the chunk reads there
+// (1: every window reads the one array; else one array a window), the
+// addresses of its window starts (batch, 4) and weights (batch,), and its
+// batch.
+struct ChunkRow {
+  long long a, a_batch, starts, weights, batch;
+};
+
+}  // namespace
+
+// Plain C interface for ctypes: pointers and the stream as void*, sizes as
+// int; each returns cudaGetLastError() after its launch (0 = launched).
+extern "C" {
+
+int row_limb_gemm(const void* t_limbs, const void* t_scales,
+                  const void* x_limbs, const void* x_scales, void* yr,
+                  void* yi, int batch, int n, int w, int kp, int fast,
+                  void* stream) {
+  const int nl = fast ? 2 : 3;
+  CUtensorMap map_t, map_x;
+  if (int e = limb_map(&map_t, t_limbs, 1, n, kp, BM, nl)) return e;
+  if (int e = limb_map(&map_x, x_limbs, batch, w, kp, BN, nl)) return e;
+  return issue_row_limb_gemm(map_t, t_scales, map_x, x_scales, yr, yi, batch,
+                             n, w, kp, fast, static_cast<cudaStream_t>(stream));
+}
+
+int row_requantize(const void* yr, const void* yi, void* y_limbs,
+                   void* y_scales, int rows, int w, int kp, void* stream) {
+  return issue_row_requantize(yr, yi, y_limbs, y_scales, rows, w, kp,
+                              static_cast<cudaStream_t>(stream));
+}
+
+int window_product_limbs(const void* a, const void* b, const void* starts,
+                         void* x_limbs, void* x_scales, int batch, int a_batch,
+                         int ha, int wa, int hb, int wb, int w, int kp,
+                         void* stream) {
+  if (kp % 32 || kp < w || w < 1 || (a_batch != 1 && a_batch != batch))
+    return (int)cudaErrorInvalidValue;
+  WplPlan plan;
+  if (int e = wpl_plan(a, b, wa, wb, w, kp, &plan)) return e;
+  WplMaps maps;
+  if (plan.tma) {
+    if (int e = wpl_map_pair(&maps.map_a, &maps.wide_a, a, a_batch, ha, wa))
+      return e;
+    if (int e = wpl_map_pair(&maps.map_b, &maps.wide_b, b, 1, hb, wb))
+      return e;
+  }
+  return issue_window_product_limbs(plan, maps, a, b, starts, x_limbs,
+                                    x_scales, batch, a_batch, ha, wa, hb, wb,
+                                    w, kp, static_cast<cudaStream_t>(stream));
 }
 
 // How window_product_limbs runs for these operands: plan[0..5] = TMA (1) or
@@ -1336,17 +1401,96 @@ int column_intensity(const void* y_limbs, const void* y_scales,
   CUtensorMap map_y, map_t;
   if (int e = limb_map(&map_y, y_limbs, batch, n, kp, BM, nl)) return e;
   if (int e = limb_map(&map_t, t_limbs, 1, n, kp, BN, nl)) return e;
+  return issue_column_intensity(map_y, y_scales, map_t, t_scales, weights, out,
+                                batch, n, kp, fast,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The int8 chunk loop of an apply or an exact pass, issued from here: for
+// each of `chunks` rows of `table` (ChunkRow), the four kernels in the
+// order and with the launches of the four entries above, window_product_limbs,
+// row_limb_gemm, row_requantize, column_intensity, the last adding the
+// chunk's image into `out`. One chunk's workspace (x_limbs, x_scales, yr,
+// yi, y_limbs, y_scales, sized for the largest batch) serves every chunk:
+// the kernels run in stream order. T0's maps and b's are encoded once a
+// loop, a's when the chunk's a changes, the workspace's when the batch
+// changes (a short last chunk). Returns 0, or the first error with
+// where[0..1] = the chunk and the kernel (0-3, in the order above) it came
+// from; every launch before that one was issued.
+int int8_chunk_loop(const void* table, int chunks, const void* b,
+                    const void* t_limbs, const void* t_scales, void* x_limbs,
+                    void* x_scales, void* yr, void* yi, void* y_limbs,
+                    void* y_scales, void* out, int ha, int wa, int hb, int wb,
+                    int n, int w, int kp, int fast, void* where, void* stream) {
+  auto rows = static_cast<const ChunkRow*>(table);
   auto s = static_cast<cudaStream_t>(stream);
-  auto ys = static_cast<const float*>(y_scales);
-  auto ts = static_cast<const float*>(t_scales);
-  auto wt = static_cast<const float*>(weights);
-  auto o = static_cast<float*>(out);
-  const dim3 grid = tiles(n, n);
-  if (fast)
-    return launch_tiles<column_intensity_kernel<true>>(
-        grid, s, map_y, ys, map_t, ts, wt, o, batch, n, kp);
-  return launch_tiles<column_intensity_kernel<false>>(
-      grid, s, map_y, ys, map_t, ts, wt, o, batch, n, kp);
+  int* at = static_cast<int*>(where);
+  at[0] = at[1] = 0;
+  auto fail = [&](int chunk, int kernel, int e) {
+    at[0] = chunk;
+    at[1] = kernel;
+    return e;
+  };
+  if (kp % 32 || kp < w || w < 1) return fail(0, 0, cudaErrorInvalidValue);
+  const int nl = fast ? 2 : 3;
+  CUtensorMap row_t{}, col_t{}, row_x{}, col_y{};
+  WplPlan plan{};
+  WplMaps maps;
+  bool b_mapped = false;
+  const ChunkRow* last = nullptr;
+  for (int c = 0; c < chunks; ++c) {
+    const ChunkRow& r = rows[c];
+    const int batch = (int)r.batch, a_batch = (int)r.a_batch;
+    const void* a = reinterpret_cast<const void*>(r.a);
+    const void* starts = reinterpret_cast<const void*>(r.starts);
+    const void* weights = reinterpret_cast<const void*>(r.weights);
+    if (batch < 1 || (a_batch != 1 && a_batch != batch))
+      return fail(c, 0, cudaErrorInvalidValue);
+    if (!last || r.a != last->a || r.a_batch != last->a_batch) {
+      if (int e = wpl_plan(a, b, wa, wb, w, kp, &plan)) return fail(c, 0, e);
+      if (plan.tma && !b_mapped) {
+        if (int e = wpl_map_pair(&maps.map_b, &maps.wide_b, b, 1, hb, wb))
+          return fail(c, 0, e);
+        b_mapped = true;
+      }
+      if (plan.tma) {
+        if (int e = wpl_map_pair(&maps.map_a, &maps.wide_a, a, a_batch, ha, wa))
+          return fail(c, 0, e);
+      }
+    }
+    if (int e = issue_window_product_limbs(plan, maps, a, b, starts, x_limbs,
+                                           x_scales, batch, a_batch, ha, wa,
+                                           hb, wb, w, kp, s))
+      return fail(c, 0, e);
+    const bool new_batch = !last || r.batch != last->batch;
+    if (!last) {
+      if (int e = limb_map(&row_t, t_limbs, 1, n, kp, BM, nl))
+        return fail(c, 1, e);
+    }
+    if (new_batch) {
+      if (int e = limb_map(&row_x, x_limbs, batch, w, kp, BN, nl))
+        return fail(c, 1, e);
+    }
+    if (int e = issue_row_limb_gemm(row_t, t_scales, row_x, x_scales, yr, yi,
+                                    batch, n, w, kp, fast, s))
+      return fail(c, 1, e);
+    if (int e = issue_row_requantize(yr, yi, y_limbs, y_scales, batch * n, w,
+                                     kp, s))
+      return fail(c, 2, e);
+    if (!last) {
+      if (int e = limb_map(&col_t, t_limbs, 1, n, kp, BN, nl))
+        return fail(c, 3, e);
+    }
+    if (new_batch) {
+      if (int e = limb_map(&col_y, y_limbs, batch, n, kp, BM, nl))
+        return fail(c, 3, e);
+    }
+    if (int e = issue_column_intensity(col_y, y_scales, col_t, t_scales,
+                                       weights, out, batch, n, kp, fast, s))
+      return fail(c, 3, e);
+    last = &r;
+  }
+  return 0;
 }
 
 // Overrides the dynamic shared memory that row_limb_gemm and

@@ -14,10 +14,12 @@ Engines (:func:`resolve_engine`):
   windowed path the phase-free 3M form with one static ``T0``, in float32
   with TF32 off;
 * ``int8`` / ``int8_fast``: the same windowed contraction on the
-  hand-written int8 limb kernels (:mod:`.kernels.intensity_int8`); their
-  gradient recomputes the chunk through the float32 3M path, as the JAX
-  package's ``custom_vjp`` does (:class:`_Int8Intensity`). ``pallas`` is
-  accepted as an alias of ``int8``.
+  hand-written int8 limb kernels (:mod:`.kernels.intensity_int8`); on the
+  card without gradients one host call issues every chunk
+  (:func:`_int8_intensity`); their gradient recomputes the chunk through
+  the float32 3M path, as the JAX package's ``custom_vjp`` does
+  (:class:`_Int8Intensity`). ``pallas`` is accepted as an alias of
+  ``int8``.
 
 Only ``matmul_precision='highest'`` exists: TF32 stays off.
 
@@ -42,6 +44,7 @@ from ..config import OpticsConfig
 from .fourier import centered_ifft2, crop_center, pad_center
 from .fraunhofer import separable_dft
 from .kernels.intensity_int8 import (check_window_starts, column_intensity_int8,
+                                     count_chunks, int8_chunk_loop,
                                      prepare_t0_limbs, row_limb_gemm,
                                      row_requantize, window_product_limbs,
                                      window_products)
@@ -221,6 +224,7 @@ def _int8_chunk(a, b, starts, w: int, t_limbs, t_scales, weights, *,
                 fast: bool, out: torch.Tensor):
     """The int8 chunk: four launches on the card, X is never formed, and
     the image is added into ``out`` in place."""
+    count_chunks("python")
     x_limbs, x_scales = window_product_limbs(a, b, starts, w)
     yr, yi = row_limb_gemm(x_limbs, x_scales, t_limbs, t_scales, fast=fast)
     y_limbs, y_scales = row_requantize(yr, yi, t_limbs.shape[-1])
@@ -265,24 +269,39 @@ class _Int8Intensity(torch.autograd.Function):
                 None, None, None, None, None, None, None)
 
 
-def _intensity_windowed_int8(a, b, starts, w: int, t0r, t0i, t_limbs,
-                             t_scales, weights, *, fast: bool,
-                             out: torch.Tensor):
+def _int8_intensity(a, b, starts, w: int, t0r, t0i, t_limbs, t_scales,
+                    weights, *, chunk: int, fast: bool, out: torch.Tensor):
     """Same contraction as :func:`_intensity_windowed_3m` for the window
-    products X_b of ``a`` and ``b`` at ``starts`` (see
-    :func:`window_product_limbs`), on the int8 limb kernels: ``t_limbs``,
-    ``t_scales`` quantize T0's float32 planes ``t0r``, ``t0i``. Without
-    gradients the image is added into ``out`` in place (four launches on
-    the card) and ``out`` is returned. When grad mode is on and an input
-    requires grad, the chunk runs as :class:`_Int8Intensity` (the same four
-    launches into a fresh buffer; T0's planes serve its backward) and
-    ``out + chunk`` is returned: the caller keeps the result."""
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
-                                    or weights.requires_grad):
-        return out + _Int8Intensity.apply(a, b, weights, starts, w, t_limbs,
-                                          t_scales, t0r, t0i, fast)
-    return _int8_chunk(a, b, starts, w, t_limbs, t_scales, weights, fast=fast,
-                       out=out)
+    products X_b of ``a`` and ``b`` at ``starts`` (P, 4) (see
+    :func:`window_product_limbs`), ``chunk`` windows a chunk, on the int8
+    limb kernels: ``t_limbs``, ``t_scales`` quantize T0's float32 planes
+    ``t0r``, ``t0i``; ``a`` (1 or P, ...) holds the one array every window
+    reads, or one array a window. Returns ``out`` plus the image:
+
+    * on the card without gradients, one host call issues every chunk
+      (:func:`int8_chunk_loop`, four launches a chunk) into ``out`` in
+      place;
+    * on the CPU, the same chunks one at a time through the plain
+      versions, into ``out`` in place;
+    * when grad mode is on and an input requires grad, each chunk as
+      :class:`_Int8Intensity` (the same four launches into a fresh buffer;
+      T0's planes serve its backward), added out of place: the caller
+      keeps the returned sum."""
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                        or weights.requires_grad)
+    if out.device.type == "cuda" and not grad:
+        return int8_chunk_loop(a, b, starts, w, t_limbs, t_scales, weights,
+                               chunk=chunk, fast=fast, out=out)
+    for c in range(0, starts.shape[0], chunk):
+        a_c = a[c:c + chunk] if a.shape[0] > 1 else a
+        s_c, w_c = starts[c:c + chunk], weights[c:c + chunk]
+        if grad:
+            out = out + _Int8Intensity.apply(a_c, b, w_c, s_c, w, t_limbs,
+                                             t_scales, t0r, t0i, fast)
+        else:
+            _int8_chunk(a_c, b, s_c, w, t_limbs, t_scales, w_c, fast=fast,
+                        out=out)
+    return out
 
 
 def _fields_gau23(pupil_tiled, spectrum, shifts, fft_size, engine="fft"):
@@ -369,16 +388,16 @@ def accumulate_intensity(
                                     pupil_tiled.shape, spectrum.shape),
                 device=device)
 
+    if solver == "gau23" and windowed and engine in ("int8", "int8_fast"):
+        acc = _int8_intensity(one_pupil, spectrum, starts, w_win, t0r, t0i,
+                              t_limbs, t_scales, weights, chunk=chunk,
+                              fast=engine == "int8_fast", out=acc)
+        _FIELD_COUNTS.add("fields", p)
+        return acc
     for c in range(0, p, chunk):
         s = shifts[c : c + chunk]
         w = weights[c : c + chunk]
         if solver == "gau23" and windowed:
-            if engine in ("int8", "int8_fast"):
-                acc = _intensity_windowed_int8(
-                    one_pupil, spectrum, starts[c : c + chunk], w_win, t0r,
-                    t0i, t_limbs, t_scales, w, fast=engine == "int8_fast",
-                    out=acc)
-                continue
             x = window_products(one_pupil, spectrum, starts[c : c + chunk], w_win)
             acc = acc + _intensity_windowed_3m(x, t0r, t0i, w)
             continue

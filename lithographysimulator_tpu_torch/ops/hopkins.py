@@ -45,13 +45,13 @@ import torch
 
 from .._tensors import per_device_cache, to_tensor
 from ..config import OpticsConfig
-from .abbe import (_intensity_windowed_int8, _postprocess_gau23,
+from .abbe import (_int8_intensity, _postprocess_gau23,
                    _zoom_dft_kernel, check_matmul_precision, resolve_engine,
                    source_points)
 from .compensated import rowdot3_compensated, rowdot_compensated
 from .fourier import centered_ifft2, crop_center, pad_center
 from .fraunhofer import separable_dft
-from .kernels.intensity_int8 import check_window_starts, prepare_t0_limbs
+from .kernels.intensity_int8 import prepare_t0_limbs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,24 +249,22 @@ def socs_image(
         # serves every width, so both sizes run the int8 row kernel
         # (ROADMAP.md Queue 3, R3).
         t_re, t_im, t_limbs, t_scales = _int8_chirp(n, fft_size, device)
-        # each chunk's window is the whole kernel and spectrum: zero starts
-        starts = torch.as_tensor(
-            check_window_starts(np.zeros((chunk, 4), np.int32), n,
-                                kernels.shape, spectrum.shape), device=device)
-        spectrum = spectrum.contiguous()
-    elif solver == "gau23" and engine == "matmul":
+        # each kernel's window is the whole kernel and spectrum: zero
+        # starts, made where the kernels are, so the apply uploads nothing
+        # (a blocking upload waits for the card's queue to drain)
+        starts = torch.zeros((socs.rank, 4), dtype=torch.int32, device=device)
+        acc = torch.zeros((n, n), dtype=torch.float32, device=device)
+        acc = _int8_intensity(kernels, spectrum.contiguous(), starts, n, t_re,
+                              t_im, t_limbs, t_scales, lams, chunk=chunk,
+                              fast=engine == "int8_fast", out=acc)
+        return _postprocess_gau23(acc, config)
+    if solver == "gau23" and engine == "matmul":
         t = torch.as_tensor(_zoom_dft_kernel(n, fft_size), dtype=spectrum.dtype,
                             device=device)
 
     acc = torch.zeros((n, n), dtype=torch.float32, device=device)
     for c in range(0, socs.rank, chunk):
         ls = lams[c:c + chunk]
-        if solver == "gau23" and engine in ("int8", "int8_fast"):
-            acc = _intensity_windowed_int8(
-                kernels[c:c + chunk], spectrum, starts[:len(ls)], n, t_re,
-                t_im, t_limbs, t_scales, ls, fast=engine == "int8_fast",
-                out=acc)
-            continue
         prod = kernels[c:c + chunk] * spectrum
         if solver == "direct":
             fields = separable_dft(prod, config, sign=-1, dtype=spectrum.dtype)

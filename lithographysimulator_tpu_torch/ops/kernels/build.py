@@ -39,6 +39,8 @@ SIGNATURES = {
                              _I, _P),
     "window_product_limbs_plan": (_P, _P, _I, _I, _I, _I, _P),
     "column_intensity": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "int8_chunk_loop": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P, _P),
     "set_dynamic_smem": (_I,),
 }
 

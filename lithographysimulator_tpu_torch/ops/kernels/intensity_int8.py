@@ -33,6 +33,12 @@ launches its kernel (or raises) and adds one to :data:`LAUNCHES`. The plain
 versions run the integer dots as float64 matmuls of integer-valued tensors,
 exact because ``|S| <= 3 * w * 127^2 < 2^53``, on either device.
 
+A chunk of the exact engine or the SOCS apply is the four kernels in the
+order of the table. On the card :func:`int8_chunk_loop` issues every chunk
+of an apply or a pass from native code, in one host call; the four
+wrappers serve one chunk at a time (the gradient's forward, the CPU).
+:data:`CHUNKS` counts the chunks each way issued.
+
 Limb stacks are int8 tensors ``(3 planes [r, i, r+i], 3 limbs, ..., rows,
 kp)`` whose contraction dim is padded with zero limbs to ``kp``, a multiple
 of :data:`K_ALIGN` (exact: zero limbs add nothing); scales are f32
@@ -40,6 +46,8 @@ of :data:`K_ALIGN` (exact: zero limbs add nothing); scales are f32
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -50,13 +58,22 @@ from ..._spans import Counters
 #: zero-fill their 128-byte slabs past it)
 K_ALIGN = 32
 
+#: the kernels of a chunk, in the order a chunk launches them
+CHUNK_KERNELS = ("window_product_limbs", "row_limb_gemm", "row_requantize",
+                 "column_intensity")
+
 # the launch counts, in the port's counter store (tallied as
 # ``int8_launches.<kernel>`` while a trace records)
-_LAUNCH_COUNTS = Counters("int8_launches", ("window_product_limbs",
-                                            "row_limb_gemm", "row_requantize",
-                                            "column_intensity"))
+_LAUNCH_COUNTS = Counters("int8_launches", CHUNK_KERNELS)
 #: kernel launches by name (wrappers count only their CUDA launches)
 LAUNCHES = _LAUNCH_COUNTS.totals
+
+# chunks by the path that issued them (tallied as ``int8_chunks.<path>``
+# while a trace records): ``native``, :func:`int8_chunk_loop`; ``python``,
+# one chunk through the four wrappers (``ops/abbe._int8_chunk``)
+_CHUNK_COUNTS = Counters("int8_chunks", ("native", "python"))
+#: int8 chunks issued, by path
+CHUNKS = _CHUNK_COUNTS.totals
 
 
 def reset_launch_counts() -> None:
@@ -66,6 +83,12 @@ def reset_launch_counts() -> None:
 def count_launch(name: str) -> None:
     """Add one launch of kernel ``name`` to :data:`LAUNCHES`."""
     _LAUNCH_COUNTS.add(name)
+
+
+def count_chunks(path: str, n: int = 1) -> None:
+    """Add ``n`` chunks issued by ``path`` (``native`` or ``python``) to
+    :data:`CHUNKS`."""
+    _CHUNK_COUNTS.add(path, n)
 
 
 def padded_width(w: int) -> int:
@@ -283,12 +306,19 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
                          "pass .resolve_conj() / .resolve_neg() of it")
 
 
+@contextlib.contextmanager
+def _device_stream(device: torch.device):
+    """Enter ``device`` and give the handle of its current stream: a launch
+    inside runs on that device, on PyTorch's stream."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     from .build import load_library
 
     fn = getattr(load_library(), name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with _device_stream(device) as stream:
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
@@ -421,4 +451,105 @@ def column_intensity_int8(y_limbs, y_scales, t_limbs, t_scales, weights, *,
     _launch("column_intensity", y_limbs.device, y_limbs.data_ptr(),
             y_scales.data_ptr(), t_limbs.data_ptr(), t_scales.data_ptr(),
             weights.data_ptr(), out.data_ptr(), batch, n, kp, int(fast))
+    return out
+
+
+def chunk_table(a: torch.Tensor, starts: torch.Tensor, weights: torch.Tensor,
+                chunk: int) -> np.ndarray:
+    """The rows (chunks, 5) int64 that :func:`int8_chunk_loop` hands to the
+    native loop, one a chunk of ``chunk`` windows (the last may be short):
+    the address of the chunk's first array of ``a`` and how many arrays it
+    reads there, the addresses of its ``starts`` and ``weights``, and its
+    batch. They are what the per-chunk loop passes to the four wrappers:
+    ``a[c:c + chunk]`` (or the whole of a one-array ``a``),
+    ``starts[c:c + chunk]`` and ``weights[c:c + chunk]``."""
+    count = starts.shape[0]
+    first = np.arange(0, count, chunk, dtype=np.int64)
+    batch = np.minimum(chunk, count - first)
+    table = np.empty((len(first), 5), np.int64)
+    if a.shape[0] == 1:
+        table[:, 0], table[:, 1] = a.data_ptr(), 1
+    else:
+        table[:, 0] = a.data_ptr() + first * (a.stride(0) * a.element_size())
+        table[:, 1] = batch
+    table[:, 2] = starts.data_ptr() + first * (starts.stride(0)
+                                               * starts.element_size())
+    table[:, 3] = weights.data_ptr() + first * weights.element_size()
+    table[:, 4] = batch
+    return table
+
+
+def int8_chunk_loop(a: torch.Tensor, b: torch.Tensor, starts: torch.Tensor,
+                    w: int, t_limbs: torch.Tensor, t_scales: torch.Tensor,
+                    weights: torch.Tensor, *, chunk: int, fast: bool = False,
+                    out: torch.Tensor) -> torch.Tensor:
+    """``out += sum_b weights_b |T0 @ X_b @ T0^T|^2`` over the windows at
+    ``starts`` (P, 4), ``chunk`` windows a chunk, on the card in one host
+    call: a native loop issues each chunk's four kernels with the launches
+    of :func:`window_product_limbs`, :func:`row_limb_gemm`,
+    :func:`row_requantize` and :func:`column_intensity_int8` (``out``
+    given), in that order, and adds the chunks into ``out`` in order, so
+    ``out`` ends bit for bit as after the per-chunk loop. ``a`` (1 or P,
+    Ha, Wa) complex64: every window reads the one array, or window b reads
+    ``a[b]``; ``b``, ``starts`` (inside the operands, as
+    :func:`check_window_starts` validates them), ``w``, ``t_limbs``,
+    ``t_scales`` as the wrappers take them; ``weights`` (P,).
+    One chunk's workspace serves every chunk. The launches are counted in
+    :data:`LAUNCHES`, the chunks in :data:`CHUNKS` (``native``); a refused
+    launch raises RuntimeError naming the kernel and the chunk, after the
+    launches before it were issued. CUDA tensors only. Returns ``out``."""
+    if not _on_cuda(a, b, starts, t_limbs, t_scales, weights, out):
+        raise ValueError("int8_chunk_loop issues the kernels: it takes CUDA "
+                         "tensors only")
+    count = starts.shape[0]
+    a_count, ha, wa = a.shape
+    hb, wb = b.shape
+    n, kp = t_limbs.shape[2], t_limbs.shape[-1]
+    _check(a, "a", torch.complex64, (a_count, ha, wa))
+    _check(b, "b", torch.complex64, (hb, wb))
+    _check(starts, "starts", torch.int32, (count, 4))
+    _check(t_limbs, "t_limbs", torch.int8, (3, 3, n, kp))
+    _check(t_scales, "t_scales", torch.float32, (3, n))
+    _check(out, "out", torch.float32, (n, n))
+    weights = weights.to(torch.float32).contiguous()
+    if tuple(weights.shape) != (count,):
+        raise ValueError(f"weights: expected ({count},), got "
+                         f"{tuple(weights.shape)}")
+    if a_count not in (1, count):
+        raise ValueError(f"a holds {a_count} arrays for {count} windows")
+    if not 1 <= w <= min(ha, wa, hb, wb) or kp != padded_width(w):
+        raise ValueError(f"w={w} must lie in [1, the operands' sides] with "
+                         f"T0's kp={kp} = padded_width(w)")
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk} must be at least 1")
+    if count == 0:
+        return out
+    from .build import load_library
+
+    table = chunk_table(a, starts, weights, chunk)
+    chunks, batch, dev = len(table), min(chunk, count), out.device
+    x_limbs = torch.empty((3, 3, batch, w, kp), dtype=torch.int8, device=dev)
+    x_scales = torch.empty((3, batch, w), dtype=torch.float32, device=dev)
+    yr = torch.empty((batch, n, w), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    y_limbs = torch.empty((3, 3, batch, n, kp), dtype=torch.int8, device=dev)
+    y_scales = torch.empty((3, batch, n), dtype=torch.float32, device=dev)
+    where = np.zeros(2, np.int32)  # the chunk and kernel of a refused launch
+    lib = load_library()
+    with _device_stream(dev) as stream:
+        err = lib.int8_chunk_loop(
+            table.ctypes.data, chunks, b.data_ptr(), t_limbs.data_ptr(),
+            t_scales.data_ptr(), x_limbs.data_ptr(), x_scales.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), y_limbs.data_ptr(),
+            y_scales.data_ptr(), out.data_ptr(), ha, wa, hb, wb, n, w, kp,
+            int(fast), where.ctypes.data, stream)
+    failed_chunk, failed_kernel = int(where[0]), int(where[1])
+    issued = 4 * failed_chunk + failed_kernel if err else 4 * chunks
+    for i, name in enumerate(CHUNK_KERNELS):
+        _LAUNCH_COUNTS.add(name, issued // 4 + (i < issued % 4))
+    count_chunks("native", issued // 4)
+    if err:
+        raise RuntimeError(
+            f"CUDA kernel {CHUNK_KERNELS[failed_kernel]} failed to launch in "
+            f"chunk {failed_chunk} of {chunks} (int8_chunk_loop): error {err}")
     return out

@@ -322,6 +322,142 @@ def test_refused_launch_raises():
     assert _nrms(img.cpu(), ik.column_intensity_int8_plain(*cargs).cpu()) < TOL
 
 
+def _loop_operands(dev, kind, count):
+    """Operands of ``int8_chunk_loop`` at the main path's shapes, from seed
+    ``count``: ``socs``, ``count`` random (1024, 1024) kernels at zero
+    starts against the whole chirp (w = n); ``exact``, ``count`` windows of
+    w = 520 of one tiled (1, 2048, 2048) pupil at the engine's own window
+    starts (shifts up to 248 px, odd columns included) against its T0."""
+    from lithographysimulator_tpu_torch.ops import abbe
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    n = 1024
+    gen = torch.Generator(device=dev).manual_seed(count)
+    rng = np.random.default_rng(count)
+    b = torch.randn((n, n), dtype=torch.complex64, device=dev, generator=gen)
+    if kind == "socs":
+        w = n
+        a = torch.randn((count, n, n), dtype=torch.complex64, device=dev,
+                        generator=gen)
+        starts = np.zeros((count, 4), np.int64)
+        t0 = abbe._zoom_dft_kernel(n, 4 * n)
+    else:
+        w = abbe._window_size(n)
+        a = torch.randn((1, 2 * n, 2 * n), dtype=torch.complex64, device=dev,
+                        generator=gen)
+        shifts = rng.integers(-248, 249, size=(count, 2))
+        starts = abbe._window_starts(shifts, n, w, n // 4 - 1)
+        t0 = abbe._zoom_dft_window(n, 4 * n)
+    starts = torch.as_tensor(ik.check_window_starts(starts, w, a.shape, b.shape),
+                             device=dev)
+    t0r = torch.as_tensor(t0.real, dtype=torch.float32, device=dev)
+    t0i = torch.as_tensor(t0.imag, dtype=torch.float32, device=dev)
+    weights = torch.as_tensor(rng.random(count).astype(np.float32), device=dev)
+    return (a, b, starts, w, *ik.prepare_t0_limbs(t0r, t0i), weights)
+
+
+def _per_chunk(a, b, starts, w, t_limbs, t_scales, weights, chunk, fast, out):
+    """The per-chunk path: the four wrappers, chunk by chunk, into out."""
+    from lithographysimulator_tpu_torch.ops import abbe
+
+    for c in range(0, starts.shape[0], chunk):
+        abbe._int8_chunk(a[c:c + chunk] if a.shape[0] > 1 else a, b,
+                         starts[c:c + chunk], w, t_limbs, t_scales,
+                         weights[c:c + chunk], fast=fast, out=out)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("kind,count", [("socs", 256), ("socs", 6), ("exact", 64)])
+def test_native_chunk_loop_matches_the_per_chunk_path(kind, count, fast):
+    """The native chunk loop against the per-chunk path (chunk 4): SOCS at
+    1024^2 rank 256, SOCS at rank 6 (a short last chunk), the exact pass at
+    (1024, w = 520) with one array for every window. The images are equal
+    bit for bit, each way adds to a nonzero ``out`` in place, the loop
+    launches each kernel once a chunk, and the chunk counters name the
+    path."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    ops = _loop_operands(dev, kind, count)
+    n, chunks = ops[4].shape[2], -(-count // 4)
+    start = torch.rand((n, n), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(7))
+    ref = _per_chunk(*ops, 4, fast, start.clone())
+    launches, before = dict(ik.LAUNCHES), dict(ik.CHUNKS)
+    out = start.clone()
+    got = ik.int8_chunk_loop(*ops, chunk=4, fast=fast, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    assert {k: ik.LAUNCHES[k] - launches[k] for k in launches} == dict.fromkeys(
+        ik.CHUNK_KERNELS, chunks)
+    assert {k: ik.CHUNKS[k] - before[k] for k in before} == {"native": chunks,
+                                                             "python": 0}
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, start)
+
+
+@pytest.mark.cuda
+def test_native_chunk_loop_refused_launch_raises():
+    """A launch the card refuses inside the native loop (row_limb_gemm's
+    shared memory above a block's limit) raises RuntimeError naming the
+    kernel and the chunk; only the launch before it (chunk 0's
+    window_product_limbs) is counted. At the kernels' own size the loop
+    then runs and equals the per-chunk path."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+    from lithographysimulator_tpu_torch.ops.kernels.build import load_library
+
+    dev = _cuda()
+    ops = _loop_operands(dev, "socs", 6)
+    n = ops[4].shape[2]
+    lib = load_library()
+    launches, before = dict(ik.LAUNCHES), dict(ik.CHUNKS)
+    lib.set_dynamic_smem(256 * 1024)  # above the 227 KB a block may use
+    try:
+        with pytest.raises(RuntimeError,
+                           match="row_limb_gemm failed to launch in chunk 0 of 2"):
+            ik.int8_chunk_loop(*ops, chunk=4,
+                               out=torch.zeros((n, n), device=dev))
+    finally:
+        lib.set_dynamic_smem(0)
+    torch.cuda.synchronize()
+    assert {k: ik.LAUNCHES[k] - launches[k] for k in launches} == {
+        "window_product_limbs": 1, "row_limb_gemm": 0, "row_requantize": 0,
+        "column_intensity": 0}
+    assert ik.CHUNKS == before
+    out = ik.int8_chunk_loop(*ops, chunk=4, out=torch.zeros((n, n), device=dev))
+    ref = _per_chunk(*ops, 4, False, torch.zeros((n, n), device=dev))
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["gau23", "socs"])
+def test_simulate_issues_its_chunks_natively(solver):
+    """simulate() on the card, exact and SOCS: every int8 chunk goes
+    through the native loop (none through the per-chunk wrappers), one
+    launch of each kernel a chunk."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    _cuda()
+    cfg = lt.OpticsConfig(pixel_number=128)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    extra = {"socs_rank": 18} if solver == "socs" else {}
+    mask = lt.demo_bars(cfg, device="cuda")
+    lt.simulate(mask, src, [0, 0, 0.01, 0, 50], device="cuda", solver=solver,
+                **extra)  # builds the kernel set and the library
+    launches, before = dict(ik.LAUNCHES), dict(ik.CHUNKS)
+    lt.simulate(mask, src, [0, 0, 0.01, 0, 50], device="cuda", solver=solver,
+                **extra)
+    chunks = {k: ik.CHUNKS[k] - before[k] for k in before}
+    assert chunks["python"] == 0 and chunks["native"] > 0
+    if solver == "socs":
+        assert chunks["native"] == 5  # rank 18: four chunks of 4, one of 2
+    assert {k: ik.LAUNCHES[k] - launches[k] for k in launches} == dict.fromkeys(
+        ik.CHUNK_KERNELS, chunks["native"])
+
+
 @pytest.mark.cuda
 def test_int8_engine_end_to_end():
     """simulate() on the card runs the kernels and agrees with the fft engine."""
