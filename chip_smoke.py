@@ -986,8 +986,8 @@ def phase_socs_headline(torch, lt):
 
 def _socs_image_f64(torch, spectrum, socs, cfg) -> np.ndarray:
     """socs_image's zoom-DFT apply in complex128, post-processed in float64."""
-    from lithographysimulator_tpu_torch.ops.abbe import (_postprocess_gau23,
-                                                         _zoom_dft_kernel)
+    from lithographysimulator_tpu_torch.ops.abbe import (_zoom_dft_kernel,
+                                                         postprocess_gau23)
 
     n = cfg.n
     t = torch.as_tensor(_zoom_dft_kernel(n, cfg.wavelength_scaling().fft_size),
@@ -997,7 +997,7 @@ def _socs_image_f64(torch, spectrum, socs, cfg) -> np.ndarray:
     for c in range(0, socs.rank, 4):
         fields = t @ (socs.kernels[c:c + 4] * spectrum).to(torch.complex128) @ t.T
         acc += torch.sum(lams[c:c + 4, None, None] * fields.abs() ** 2, dim=0)
-    return check_image(_postprocess_gau23(acc, cfg), n)
+    return check_image(postprocess_gau23(acc, cfg), n)
 
 
 def phase_socs_auto(torch, lt, exact) -> None:

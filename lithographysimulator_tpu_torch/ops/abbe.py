@@ -14,18 +14,21 @@ Engines (:func:`resolve_engine`):
   windowed path the phase-free 3M form with one static ``T0``, in float32
   with TF32 off;
 * ``int8`` / ``int8_fast``: the same windowed contraction on the
-  hand-written int8 limb kernels (:mod:`.kernels.intensity_int8`); on the
-  card without gradients one host call issues every chunk
-  (:func:`_int8_intensity`); their gradient recomputes the chunk through
-  the float32 3M path, as the JAX package's ``custom_vjp`` does
-  (:class:`_Int8Intensity`). ``pallas`` is accepted as an alias of
-  ``int8``.
+  hand-written int8 limb kernels (:mod:`.kernels.intensity_int8`), behind
+  one entry, :func:`int8_intensity`, which this engine's windowed pass and
+  the SOCS apply both call: on the card one host call issues every chunk,
+  on the CPU the chunks run one at a time through the plain versions; the
+  gradient recomputes each chunk through the float32 3M path, as the JAX
+  package's ``custom_vjp`` does (:class:`_Int8Intensity`). T0's planes and
+  limbs are cached per configuration and device (:func:`t0_operands`).
+  ``pallas`` is accepted as an alias of ``int8``.
 
 Only ``matmul_precision='highest'`` exists: TF32 stays off.
 
 While a profiler trace records (:mod:`..utils.profiling`),
 :func:`accumulate_intensity` marks the per-call set-up of its windowed path
-(``litho.abbe.setup``: T0's planes, their limbs and the window starts), and
+(``litho.abbe.setup``: T0's cache look-up and the window starts' check
+and upload), and
 it counts the fields it computes (``abbe.fields``, padding included).
 """
 
@@ -39,15 +42,14 @@ import numpy as np
 import torch
 
 from .._spans import Counters, span
-from .._tensors import to_tensor
+from .._tensors import per_device_cache, to_tensor
 from ..config import OpticsConfig
 from .fourier import centered_ifft2, crop_center, pad_center
 from .fraunhofer import separable_dft
 from .kernels.intensity_int8 import (check_window_starts, column_intensity_int8,
-                                     count_chunks, int8_chunk_loop,
-                                     prepare_t0_limbs, row_limb_gemm,
-                                     row_requantize, window_product_limbs,
-                                     window_products)
+                                     int8_chunk_loop, prepare_t0_limbs,
+                                     row_limb_gemm, row_requantize,
+                                     window_product_limbs, window_products)
 from .resize import bilinear_resize
 
 Solver = Literal["gau23", "direct"]
@@ -203,6 +205,22 @@ def _zoom_dft_window(n: int, fft_size: int) -> np.ndarray:
     return _zoom_dft_kernel(n, fft_size)[:, lo:lo + w]
 
 
+@per_device_cache(maxsize=4)
+def t0_operands(n: int, fft_size: int, w: int, device: torch.device):
+    """T0's float32 planes (n, w) on ``device`` and their int8 row limbs
+    and scales (:func:`prepare_t0_limbs`), a function of the config alone:
+    ``w = n`` the whole chirp (the SOCS apply), ``w = _window_size(n)`` the
+    exact engine's window (:func:`_zoom_dft_window`); the matmul and int8
+    engines read the same entry. Cached, so a tiled chip or a vector image
+    forms, uploads and quantizes it once instead of once an apply or a
+    pass; the values are the same either way."""
+    t0 = (_zoom_dft_kernel(n, fft_size) if w == n
+          else _zoom_dft_window(n, fft_size))
+    t0r = torch.as_tensor(t0.real, dtype=torch.float32, device=device)
+    t0i = torch.as_tensor(t0.imag, dtype=torch.float32, device=device)
+    return (t0r, t0i, *prepare_t0_limbs(t0r, t0i))
+
+
 def _cmatmul_3m(ar, ai, br, bi):
     """Complex matmul ``(ar + i ai) @ (br + i bi)`` as 3 real matmuls."""
     m1 = ar @ br
@@ -220,88 +238,92 @@ def _intensity_windowed_3m(x, t0r, t0i, weights):
     return torch.sum(weights[:, None, None] * (er * er + ei * ei), dim=0)
 
 
-def _int8_chunk(a, b, starts, w: int, t_limbs, t_scales, weights, *,
-                fast: bool, out: torch.Tensor):
-    """The int8 chunk: four launches on the card, X is never formed, and
-    the image is added into ``out`` in place."""
-    count_chunks("python")
-    x_limbs, x_scales = window_product_limbs(a, b, starts, w)
-    yr, yi = row_limb_gemm(x_limbs, x_scales, t_limbs, t_scales, fast=fast)
-    y_limbs, y_scales = row_requantize(yr, yi, t_limbs.shape[-1])
-    return column_intensity_int8(y_limbs, y_scales, t_limbs, t_scales,
-                                 weights, fast=fast, out=out)
+def _int8_pass(a, b, starts, w: int, t_limbs, t_scales, weights, *,
+               chunk: int, fast: bool, out: torch.Tensor) -> torch.Tensor:
+    """The int8 contraction added into ``out`` in place, on the device's
+    one path: on the card one host call issues every chunk
+    (:func:`int8_chunk_loop`, four launches a chunk); on the CPU the chunks
+    run one at a time through the four wrappers' plain versions."""
+    if out.device.type == "cuda":
+        return int8_chunk_loop(a, b, starts, w, t_limbs, t_scales, weights,
+                               chunk=chunk, fast=fast, out=out)
+    for c in range(0, starts.shape[0], chunk):
+        a_c = a[c:c + chunk] if a.shape[0] > 1 else a
+        x_limbs, x_scales = window_product_limbs(a_c, b, starts[c:c + chunk], w)
+        yr, yi = row_limb_gemm(x_limbs, x_scales, t_limbs, t_scales, fast=fast)
+        y_limbs, y_scales = row_requantize(yr, yi, t_limbs.shape[-1])
+        column_intensity_int8(y_limbs, y_scales, t_limbs, t_scales,
+                              weights[c:c + chunk], fast=fast, out=out)
+    return out
 
 
 class _Int8Intensity(torch.autograd.Function):
-    """One int8 chunk as a differentiable function of ``a``, ``b`` and
-    ``weights``. The forward runs the four kernels into a fresh (n, n)
-    buffer; the backward re-forms X with :func:`window_products` and
-    differentiates :func:`_intensity_windowed_3m` in float32, as the JAX
-    package's ``custom_vjp`` does (its ``abbe.py`` bwd): limb rounding has
-    no useful gradient. T0 gets none."""
+    """The int8 pass as a differentiable function of ``a``, ``b`` and
+    ``weights``. The forward runs :func:`_int8_pass` into a fresh (n, n)
+    buffer; the backward loops the chunks, re-forms each chunk's X with
+    :func:`window_products` and differentiates
+    :func:`_intensity_windowed_3m` in float32, as the JAX package's
+    ``custom_vjp`` does (its ``abbe.py`` bwd): limb rounding has no useful
+    gradient. T0 gets none."""
 
     @staticmethod
-    def forward(ctx, a, b, weights, starts, w, t_limbs, t_scales, t0r, t0i,
-                fast):
+    def forward(ctx, a, b, weights, starts, w, t0, chunk, fast):
+        t0r, t0i, t_limbs, t_scales = t0
         n = t_limbs.shape[2]
         out = torch.zeros((n, n), dtype=torch.float32, device=b.device)
-        _int8_chunk(a, b, starts, w, t_limbs, t_scales, weights, fast=fast,
-                    out=out)
+        _int8_pass(a, b, starts, w, t_limbs, t_scales, weights, chunk=chunk,
+                   fast=fast, out=out)
         ctx.save_for_backward(a, b, weights, starts, t0r, t0i)
-        ctx.w = w
+        ctx.w, ctx.chunk = w, chunk
         return out
 
     @staticmethod
     def backward(ctx, g):
         a, b, weights, starts, t0r, t0i = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            a_, b_, w_ = (t.detach().requires_grad_(r)
-                          for t, r in zip((a, b, weights), need))
-            x = window_products(a_, b_, starts, ctx.w)
-            part = _intensity_windowed_3m(x, t0r, t0i, w_)
-            live = [t for t, r in zip((a_, b_, w_), need) if r]
-            # the VJP as the gradient of <part, g>: the same values, and
-            # torch.autograd.grad with no grad_outputs skips the shape check
-            # that imports sympy (seconds) on its first call in a process
-            grads = iter(torch.autograd.grad((part * g).sum(), live))
-        return (*(next(grads) if r else None for r in need),
-                None, None, None, None, None, None, None)
+        grads = [torch.zeros_like(t) if r else None
+                 for t, r in zip((a, b, weights), need)]
+        batched = a.shape[0] > 1
+        for c in range(0, starts.shape[0], ctx.chunk):
+            rows = slice(c, c + ctx.chunk)
+            with torch.enable_grad():
+                a_, b_, w_ = (t.detach().requires_grad_(r) for t, r in zip(
+                    (a[rows] if batched else a, b, weights[rows]), need))
+                x = window_products(a_, b_, starts[rows], ctx.w)
+                part = _intensity_windowed_3m(x, t0r, t0i, w_)
+                live = [t for t, r in zip((a_, b_, w_), need) if r]
+                # the VJP as the gradient of <part, g>: the same values, and
+                # torch.autograd.grad with no grad_outputs skips the shape
+                # check that imports sympy (seconds) on its first call in a
+                # process
+                got = iter(torch.autograd.grad((part * g).sum(), live))
+            # a batch of arrays and the weights take one slice a chunk; a
+            # one-array a and b gather every chunk's part
+            for grad, sl in zip(grads, (rows if batched else slice(None),
+                                        slice(None), rows)):
+                if grad is not None:
+                    grad[sl] += next(got)
+        return (*grads, None, None, None, None, None)
 
 
-def _int8_intensity(a, b, starts, w: int, t0r, t0i, t_limbs, t_scales,
-                    weights, *, chunk: int, fast: bool, out: torch.Tensor):
-    """Same contraction as :func:`_intensity_windowed_3m` for the window
-    products X_b of ``a`` and ``b`` at ``starts`` (P, 4) (see
-    :func:`window_product_limbs`), ``chunk`` windows a chunk, on the int8
-    limb kernels: ``t_limbs``, ``t_scales`` quantize T0's float32 planes
-    ``t0r``, ``t0i``; ``a`` (1 or P, ...) holds the one array every window
-    reads, or one array a window. Returns ``out`` plus the image:
-
-    * on the card without gradients, one host call issues every chunk
-      (:func:`int8_chunk_loop`, four launches a chunk) into ``out`` in
-      place;
-    * on the CPU, the same chunks one at a time through the plain
-      versions, into ``out`` in place;
-    * when grad mode is on and an input requires grad, each chunk as
-      :class:`_Int8Intensity` (the same four launches into a fresh buffer;
-      T0's planes serve its backward), added out of place: the caller
-      keeps the returned sum."""
-    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
-                                        or weights.requires_grad)
-    if out.device.type == "cuda" and not grad:
-        return int8_chunk_loop(a, b, starts, w, t_limbs, t_scales, weights,
-                               chunk=chunk, fast=fast, out=out)
-    for c in range(0, starts.shape[0], chunk):
-        a_c = a[c:c + chunk] if a.shape[0] > 1 else a
-        s_c, w_c = starts[c:c + chunk], weights[c:c + chunk]
-        if grad:
-            out = out + _Int8Intensity.apply(a_c, b, w_c, s_c, w, t_limbs,
-                                             t_scales, t0r, t0i, fast)
-        else:
-            _int8_chunk(a_c, b, s_c, w, t_limbs, t_scales, w_c, fast=fast,
-                        out=out)
-    return out
+def int8_intensity(a, b, starts, w: int, t0, weights, *, chunk: int,
+                   fast: bool, out: torch.Tensor) -> torch.Tensor:
+    """The one entry of the int8 contraction: ``out`` plus the
+    :func:`_intensity_windowed_3m` image of the window products X_b of
+    ``a`` and ``b`` at ``starts`` (P, 4) (see :func:`window_product_limbs`)
+    on the int8 limb kernels, ``chunk`` windows a chunk. ``t0`` is
+    :func:`t0_operands`' (planes, limbs, scales); ``a`` (1 or P, ...) holds
+    the one array every window reads, or one array a window. Without
+    gradients the sum is added into ``out`` in place
+    (:func:`_int8_pass`); when grad mode is on and an input requires grad,
+    the pass runs as :class:`_Int8Intensity` and is added out of place: the
+    caller keeps the returned sum."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                    or weights.requires_grad):
+        return out + _Int8Intensity.apply(a, b, weights, starts, w, t0, chunk,
+                                          fast)
+    return _int8_pass(a, b, starts, w, *t0[2:], weights, chunk=chunk,
+                      fast=fast, out=out)
 
 
 def _fields_gau23(pupil_tiled, spectrum, shifts, fft_size, engine="fft"):
@@ -375,11 +397,8 @@ def accumulate_intensity(
         with span("litho.abbe.setup"):
             w_win = _window_size(n)
             lo = n // 4 - 1
-            t0 = _zoom_dft_window(n, fft_size)
-            t0r = torch.as_tensor(t0.real, dtype=torch.float32, device=device)
-            t0i = torch.as_tensor(t0.imag, dtype=torch.float32, device=device)
+            t0 = t0_operands(n, fft_size, w_win, device)
             if engine in ("int8", "int8_fast"):
-                t_limbs, t_scales = prepare_t0_limbs(t0r, t0i)
                 spectrum = spectrum.contiguous()
             one_pupil = pupil_tiled[None]  # (1, 2n, 2n): the array all windows read
             # validated once on the host: no chunk checks them on the device
@@ -389,9 +408,8 @@ def accumulate_intensity(
                 device=device)
 
     if solver == "gau23" and windowed and engine in ("int8", "int8_fast"):
-        acc = _int8_intensity(one_pupil, spectrum, starts, w_win, t0r, t0i,
-                              t_limbs, t_scales, weights, chunk=chunk,
-                              fast=engine == "int8_fast", out=acc)
+        acc = int8_intensity(one_pupil, spectrum, starts, w_win, t0, weights,
+                             chunk=chunk, fast=engine == "int8_fast", out=acc)
         _FIELD_COUNTS.add("fields", p)
         return acc
     for c in range(0, p, chunk):
@@ -399,7 +417,7 @@ def accumulate_intensity(
         w = weights[c : c + chunk]
         if solver == "gau23" and windowed:
             x = window_products(one_pupil, spectrum, starts[c : c + chunk], w_win)
-            acc = acc + _intensity_windowed_3m(x, t0r, t0i, w)
+            acc = acc + _intensity_windowed_3m(x, *t0[:2], w)
             continue
         if solver == "gau23":
             fields = _fields_gau23(pupil_tiled, spectrum, s, fft_size, engine)
@@ -410,7 +428,7 @@ def accumulate_intensity(
     return acc
 
 
-def _postprocess_gau23(image: torch.Tensor, config: OpticsConfig) -> torch.Tensor:
+def postprocess_gau23(image: torch.Tensor, config: OpticsConfig) -> torch.Tensor:
     """Gau'23-path post-processing: bilinear downscale by 1/epsilon, then
     center zero-pad back to n x n."""
     eps = config.wavelength_scaling().epsilon
@@ -450,7 +468,7 @@ def abbe_image_points(
         pupil, spectrum, shifts, weights, config, solver=solver, chunk=chunk,
         engine=engine, max_abs_shift=max_abs_shift)
     if solver == "gau23":
-        image = _postprocess_gau23(image, config)
+        image = postprocess_gau23(image, config)
     if normalize:
         if total_weight is None:
             # the sum stays on the device and in the graph: the weights'

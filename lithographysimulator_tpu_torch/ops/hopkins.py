@@ -43,15 +43,13 @@ import os
 import numpy as np
 import torch
 
-from .._tensors import per_device_cache, to_tensor
+from .._tensors import to_tensor
 from ..config import OpticsConfig
-from .abbe import (_int8_intensity, _postprocess_gau23,
-                   _zoom_dft_kernel, check_matmul_precision, resolve_engine,
-                   source_points)
+from .abbe import (check_matmul_precision, int8_intensity, postprocess_gau23,
+                   resolve_engine, source_points, t0_operands)
 from .compensated import rowdot3_compensated, rowdot_compensated
 from .fourier import centered_ifft2, crop_center, pad_center
 from .fraunhofer import separable_dft
-from .kernels.intensity_int8 import prepare_t0_limbs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,19 +186,6 @@ def tcc_eigensystem(
                        total_rank=limit)
 
 
-@per_device_cache(maxsize=4)
-def _int8_chirp(n: int, fft_size: int, device: torch.device):
-    """The whole (n, n) chirp's float32 planes and their int8 row limbs
-    and scales on ``device``: the int8 apply's T0, a function of the
-    config alone. Cached, so a tiled chip (one apply a tile) forms,
-    uploads and quantizes it once instead of once a tile; the values are
-    the same either way."""
-    t_full = _zoom_dft_kernel(n, fft_size)
-    t_re = torch.as_tensor(t_full.real, dtype=torch.float32, device=device)
-    t_im = torch.as_tensor(t_full.imag, dtype=torch.float32, device=device)
-    return (t_re, t_im, *prepare_t0_limbs(t_re, t_im))
-
-
 def socs_image(
     spectrum,
     socs: SOCSKernels,
@@ -223,9 +208,7 @@ def socs_image(
     check_matmul_precision(matmul_precision)
     if solver not in ("gau23", "direct"):
         raise ValueError(f"unknown socs solver {solver!r}")
-    if engine == "pallas":  # the JAX package's alias of int8
-        engine = "int8"
-    explicit_int8 = engine in ("int8", "int8_fast")
+    explicit_int8 = engine in ("int8", "int8_fast", "pallas")
     kernels = socs.kernels
     device = kernels.device
     spectrum = to_tensor(spectrum, device=device, dtype=torch.complex64)
@@ -241,26 +224,25 @@ def socs_image(
     lams = socs.eigenvalues.to(device=device, dtype=torch.float32)
     if solver == "gau23" and engine in ("int8", "int8_fast"):
         # The SOCS kernels are centered, so there is no per-point window:
-        # the "T0" of the limb kernels is the whole (n, n) chirp, quantized
-        # once per call. Divergence from the JAX package, on purpose: there
-        # the VMEM rules sent this call site through the split-K row kernel
-        # at 1024^2 and through an f32 row transform with a halved batch at
-        # 2048^2 (its abbe.py:279-321); here one K-looped row_limb_gemm
-        # serves every width, so both sizes run the int8 row kernel
-        # (ROADMAP.md Queue 3, R3).
-        t_re, t_im, t_limbs, t_scales = _int8_chirp(n, fft_size, device)
+        # the "T0" of the limb kernels is the whole (n, n) chirp, cached per
+        # config and device (:func:`.abbe.t0_operands`). Divergence from
+        # the JAX package, on purpose: there the VMEM rules sent this call
+        # site through the split-K row kernel at 1024^2 and through an f32
+        # row transform with a halved batch at 2048^2 (its
+        # abbe.py:279-321); here one K-looped row_limb_gemm serves every
+        # width, so both sizes run the int8 row kernel (ROADMAP.md Queue 3,
+        # R3).
         # each kernel's window is the whole kernel and spectrum: zero
         # starts, made where the kernels are, so the apply uploads nothing
         # (a blocking upload waits for the card's queue to drain)
         starts = torch.zeros((socs.rank, 4), dtype=torch.int32, device=device)
         acc = torch.zeros((n, n), dtype=torch.float32, device=device)
-        acc = _int8_intensity(kernels, spectrum.contiguous(), starts, n, t_re,
-                              t_im, t_limbs, t_scales, lams, chunk=chunk,
-                              fast=engine == "int8_fast", out=acc)
-        return _postprocess_gau23(acc, config)
+        acc = int8_intensity(kernels, spectrum.contiguous(), starts, n,
+                             t0_operands(n, fft_size, n, device), lams,
+                             chunk=chunk, fast=engine == "int8_fast", out=acc)
+        return postprocess_gau23(acc, config)
     if solver == "gau23" and engine == "matmul":
-        t = torch.as_tensor(_zoom_dft_kernel(n, fft_size), dtype=spectrum.dtype,
-                            device=device)
+        t = torch.complex(*t0_operands(n, fft_size, n, device)[:2])
 
     acc = torch.zeros((n, n), dtype=torch.float32, device=device)
     for c in range(0, socs.rank, chunk):
@@ -274,7 +256,7 @@ def socs_image(
             fields = crop_center(centered_ifft2(pad_center(prod, fft_size)), n)
         acc += torch.sum(ls[:, None, None] * fields.abs() ** 2, dim=0)
     if solver == "gau23":
-        acc = _postprocess_gau23(acc, config)
+        acc = postprocess_gau23(acc, config)
     return acc
 
 

@@ -35,9 +35,9 @@ exact because ``|S| <= 3 * w * 127^2 < 2^53``, on either device.
 
 A chunk of the exact engine or the SOCS apply is the four kernels in the
 order of the table. On the card :func:`int8_chunk_loop` issues every chunk
-of an apply or a pass from native code, in one host call; the four
-wrappers serve one chunk at a time (the gradient's forward, the CPU).
-:data:`CHUNKS` counts the chunks each way issued.
+of an apply or a pass from native code, in one host call
+(``ops/abbe.int8_intensity`` is its one caller); on CPU tensors the four
+wrappers serve one chunk at a time.
 
 Limb stacks are int8 tensors ``(3 planes [r, i, r+i], 3 limbs, ..., rows,
 kp)`` whose contraction dim is padded with zero limbs to ``kp``, a multiple
@@ -68,13 +68,6 @@ _LAUNCH_COUNTS = Counters("int8_launches", CHUNK_KERNELS)
 #: kernel launches by name (wrappers count only their CUDA launches)
 LAUNCHES = _LAUNCH_COUNTS.totals
 
-# chunks by the path that issued them (tallied as ``int8_chunks.<path>``
-# while a trace records): ``native``, :func:`int8_chunk_loop`; ``python``,
-# one chunk through the four wrappers (``ops/abbe._int8_chunk``)
-_CHUNK_COUNTS = Counters("int8_chunks", ("native", "python"))
-#: int8 chunks issued, by path
-CHUNKS = _CHUNK_COUNTS.totals
-
 
 def reset_launch_counts() -> None:
     _LAUNCH_COUNTS.reset()
@@ -83,12 +76,6 @@ def reset_launch_counts() -> None:
 def count_launch(name: str) -> None:
     """Add one launch of kernel ``name`` to :data:`LAUNCHES`."""
     _LAUNCH_COUNTS.add(name)
-
-
-def count_chunks(path: str, n: int = 1) -> None:
-    """Add ``n`` chunks issued by ``path`` (``native`` or ``python``) to
-    :data:`CHUNKS`."""
-    _CHUNK_COUNTS.add(path, n)
 
 
 def padded_width(w: int) -> int:
@@ -495,8 +482,7 @@ def int8_chunk_loop(a: torch.Tensor, b: torch.Tensor, starts: torch.Tensor,
     :func:`check_window_starts` validates them), ``w``, ``t_limbs``,
     ``t_scales`` as the wrappers take them; ``weights`` (P,).
     One chunk's workspace serves every chunk. The launches are counted in
-    :data:`LAUNCHES`, the chunks in :data:`CHUNKS` (``native``); a refused
-    launch raises RuntimeError naming the kernel and the chunk, after the
+    :data:`LAUNCHES`; a refused launch raises RuntimeError naming the kernel and the chunk, after the
     launches before it were issued. CUDA tensors only. Returns ``out``."""
     if not _on_cuda(a, b, starts, t_limbs, t_scales, weights, out):
         raise ValueError("int8_chunk_loop issues the kernels: it takes CUDA "
@@ -547,7 +533,6 @@ def int8_chunk_loop(a: torch.Tensor, b: torch.Tensor, starts: torch.Tensor,
     issued = 4 * failed_chunk + failed_kernel if err else 4 * chunks
     for i, name in enumerate(CHUNK_KERNELS):
         _LAUNCH_COUNTS.add(name, issued // 4 + (i < issued % 4))
-    count_chunks("native", issued // 4)
     if err:
         raise RuntimeError(
             f"CUDA kernel {CHUNK_KERNELS[failed_kernel]} failed to launch in "

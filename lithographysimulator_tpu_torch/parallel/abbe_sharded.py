@@ -25,8 +25,8 @@ import torch
 from .._tensors import to_tensor
 from ..config import OpticsConfig
 from ..models.pupil import pupil_function
-from ..ops.abbe import (Solver, _pad_points, _postprocess_gau23,
-                        accumulate_intensity, source_points)
+from ..ops.abbe import (Solver, _pad_points, accumulate_intensity,
+                        postprocess_gau23, source_points)
 from .mesh import FOCUS_AXIS, SOURCE_AXIS, Mesh
 
 
@@ -126,7 +126,7 @@ def abbe_image_sharded(
         solver=solver, chunk=chunk, max_abs_shift=_max_shift(shifts, max_abs_shift),
         engine=engine), mesh.first)
     if solver == "gau23":
-        image = _postprocess_gau23(image, config)
+        image = postprocess_gau23(image, config)
     return normalized(image, weights) if normalize else image
 
 
@@ -168,7 +168,7 @@ def through_focus_sharded(
                 shifts, weights, config, devices, solver=solver, chunk=chunk,
                 max_abs_shift=max_abs_shift, engine=engine), mesh.first)
             if solver == "gau23":
-                image = _postprocess_gau23(image, config)
+                image = postprocess_gau23(image, config)
             planes.append(image)
     stack = torch.stack(planes)
     return normalized(stack, weights) if normalize else stack

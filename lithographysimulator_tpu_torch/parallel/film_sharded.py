@@ -17,7 +17,7 @@ import torch
 from .._tensors import to_tensor
 from ..config import OpticsConfig
 from ..models.pupil import pupil_function
-from ..ops.abbe import _postprocess_gau23
+from ..ops.abbe import postprocess_gau23
 from ..ops.fraunhofer import mask_spectrum
 from .abbe_sharded import (_check_points, _max_shift, _source_partials,
                            host_shifts, meet, normalized,
@@ -72,7 +72,7 @@ def film_images_sharded(
                 max_abs_shift=max_abs_shift, engine=engine), first)
             total = part if total is None else total + part
         if solver == "gau23":
-            total = _postprocess_gau23(total, config)
+            total = postprocess_gau23(total, config)
         slabs.append(total)
     stack = torch.stack(slabs)
     return normalized(stack, weights) if normalize else stack

@@ -229,7 +229,7 @@ def test_dense_source_path_gradient_matches_float64(normalize):
         torch.as_tensor(pup, dtype=torch.complex128),
         torch.as_tensor(spec, dtype=torch.complex128),
         pa.dense_source_points(32), w64, pcfg, chunk=8, engine="fft")
-    img64 = pa._postprocess_gau23(raw, pcfg)
+    img64 = pa.postprocess_gau23(raw, pcfg)
     if normalize:
         img64 = img64 / w64.sum()
     (img64 * torch.as_tensor(m, dtype=torch.float64)).sum().backward()

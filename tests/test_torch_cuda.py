@@ -357,13 +357,17 @@ def _loop_operands(dev, kind, count):
 
 
 def _per_chunk(a, b, starts, w, t_limbs, t_scales, weights, chunk, fast, out):
-    """The per-chunk path: the four wrappers, chunk by chunk, into out."""
-    from lithographysimulator_tpu_torch.ops import abbe
+    """The per-chunk composition: the four public wrappers (one launch
+    each), chunk by chunk, into out."""
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
 
     for c in range(0, starts.shape[0], chunk):
-        abbe._int8_chunk(a[c:c + chunk] if a.shape[0] > 1 else a, b,
-                         starts[c:c + chunk], w, t_limbs, t_scales,
-                         weights[c:c + chunk], fast=fast, out=out)
+        x = ik.window_product_limbs(a[c:c + chunk] if a.shape[0] > 1 else a, b,
+                                    starts[c:c + chunk], w)
+        y = ik.row_limb_gemm(*x, t_limbs, t_scales, fast=fast)
+        y = ik.row_requantize(*y, t_limbs.shape[-1])
+        ik.column_intensity_int8(*y, t_limbs, t_scales, weights[c:c + chunk],
+                                 fast=fast, out=out)
     return out
 
 
@@ -374,9 +378,8 @@ def test_native_chunk_loop_matches_the_per_chunk_path(kind, count, fast):
     """The native chunk loop against the per-chunk path (chunk 4): SOCS at
     1024^2 rank 256, SOCS at rank 6 (a short last chunk), the exact pass at
     (1024, w = 520) with one array for every window. The images are equal
-    bit for bit, each way adds to a nonzero ``out`` in place, the loop
-    launches each kernel once a chunk, and the chunk counters name the
-    path."""
+    bit for bit, each way adds to a nonzero ``out`` in place, and the loop
+    launches each kernel once a chunk."""
     from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
 
     dev = _cuda()
@@ -385,15 +388,13 @@ def test_native_chunk_loop_matches_the_per_chunk_path(kind, count, fast):
     start = torch.rand((n, n), device=dev, generator=torch.Generator(
         device=dev).manual_seed(7))
     ref = _per_chunk(*ops, 4, fast, start.clone())
-    launches, before = dict(ik.LAUNCHES), dict(ik.CHUNKS)
+    launches = dict(ik.LAUNCHES)
     out = start.clone()
     got = ik.int8_chunk_loop(*ops, chunk=4, fast=fast, out=out)
     torch.cuda.synchronize()
     assert got is out
     assert {k: ik.LAUNCHES[k] - launches[k] for k in launches} == dict.fromkeys(
         ik.CHUNK_KERNELS, chunks)
-    assert {k: ik.CHUNKS[k] - before[k] for k in before} == {"native": chunks,
-                                                             "python": 0}
     assert torch.equal(out, ref)
     assert not torch.equal(out, start)
 
@@ -412,7 +413,7 @@ def test_native_chunk_loop_refused_launch_raises():
     ops = _loop_operands(dev, "socs", 6)
     n = ops[4].shape[2]
     lib = load_library()
-    launches, before = dict(ik.LAUNCHES), dict(ik.CHUNKS)
+    launches = dict(ik.LAUNCHES)
     lib.set_dynamic_smem(256 * 1024)  # above the 227 KB a block may use
     try:
         with pytest.raises(RuntimeError,
@@ -425,18 +426,32 @@ def test_native_chunk_loop_refused_launch_raises():
     assert {k: ik.LAUNCHES[k] - launches[k] for k in launches} == {
         "window_product_limbs": 1, "row_limb_gemm": 0, "row_requantize": 0,
         "column_intensity": 0}
-    assert ik.CHUNKS == before
     out = ik.int8_chunk_loop(*ops, chunk=4, out=torch.zeros((n, n), device=dev))
     ref = _per_chunk(*ops, 4, False, torch.zeros((n, n), device=dev))
     assert torch.equal(out, ref)
 
 
+def _count_native_loops(monkeypatch):
+    """Wraps the engines' one call of the native loop: the list gets the
+    chunk count of each call."""
+    from lithographysimulator_tpu_torch.ops import abbe
+
+    calls, loop = [], abbe.int8_chunk_loop
+
+    def counted(a, b, starts, *args, chunk, **kw):
+        calls.append(-(-starts.shape[0] // chunk))
+        return loop(a, b, starts, *args, chunk=chunk, **kw)
+
+    monkeypatch.setattr(abbe, "int8_chunk_loop", counted)
+    return calls
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["gau23", "socs"])
-def test_simulate_issues_its_chunks_natively(solver):
+def test_simulate_issues_its_chunks_natively(solver, monkeypatch):
     """simulate() on the card, exact and SOCS: every int8 chunk goes
-    through the native loop (none through the per-chunk wrappers), one
-    launch of each kernel a chunk."""
+    through the native loop, one loop call a pass or apply, and each
+    kernel launches once a chunk of the loops' calls."""
     import lithographysimulator_tpu_torch as lt
     from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
 
@@ -447,15 +462,56 @@ def test_simulate_issues_its_chunks_natively(solver):
     mask = lt.demo_bars(cfg, device="cuda")
     lt.simulate(mask, src, [0, 0, 0.01, 0, 50], device="cuda", solver=solver,
                 **extra)  # builds the kernel set and the library
-    launches, before = dict(ik.LAUNCHES), dict(ik.CHUNKS)
+    calls = _count_native_loops(monkeypatch)
+    launches = dict(ik.LAUNCHES)
     lt.simulate(mask, src, [0, 0, 0.01, 0, 50], device="cuda", solver=solver,
                 **extra)
-    chunks = {k: ik.CHUNKS[k] - before[k] for k in before}
-    assert chunks["python"] == 0 and chunks["native"] > 0
+    assert len(calls) == 1 and calls[0] > 0
     if solver == "socs":
-        assert chunks["native"] == 5  # rank 18: four chunks of 4, one of 2
+        assert calls == [5]  # rank 18: four chunks of 4, one of 2
     assert {k: ik.LAUNCHES[k] - launches[k] for k in launches} == dict.fromkeys(
-        ik.CHUNK_KERNELS, chunks["native"])
+        ik.CHUNK_KERNELS, sum(calls))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["gau23", "socs"])
+def test_gradient_forward_runs_the_native_loop(solver, monkeypatch):
+    """Under gradients the int8 pass on the card runs the same native loop
+    (one call, four launches a chunk) into a fresh buffer: the image equals
+    the no-grad image bit for bit, and the backward gives a finite, nonzero
+    gradient. The exact image at 128^2 (quasar) and the SOCS apply at
+    rank 18."""
+    import lithographysimulator_tpu_torch as lt
+    from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
+
+    dev = _cuda()
+    cfg = lt.OpticsConfig(pixel_number=128)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    spectrum = lt.mask_spectrum(lt.demo_bars(cfg, device=dev).geometry, cfg)
+    pupil = lt.pupil_function([0, 0, 0.01, 0, 50], cfg, device=dev)
+    socs = (lt.randomized_socs(pupil, src, cfg, rank=18) if solver == "socs"
+            else None)
+
+    def image(s):
+        if socs is not None:
+            return lt.socs_image(s, socs, cfg, engine="int8")
+        return lt.abbe_image(s, pupil, src, cfg, device=dev, engine="int8")
+
+    with torch.no_grad():
+        plain = image(spectrum)
+    calls = _count_native_loops(monkeypatch)
+    launches = dict(ik.LAUNCHES)
+    s = spectrum.clone().requires_grad_()
+    graded = image(s)
+    assert graded.requires_grad and len(calls) == 1
+    assert {k: ik.LAUNCHES[k] - launches[k] for k in launches} == dict.fromkeys(
+        ik.CHUNK_KERNELS, calls[0])
+    diff = graded.detach() - plain
+    print(f"{solver}: gradient forward against no-grad, nRMS "
+          f"{float(diff.pow(2).mean().sqrt() / plain.abs().max()):.3e}")
+    assert torch.equal(graded.detach(), plain)
+    graded.sum().backward()
+    assert torch.isfinite(s.grad).all() and float(s.grad.abs().max()) > 0
 
 
 @pytest.mark.cuda
@@ -530,8 +586,8 @@ def test_chromatic_socs_int8_apply_matches_complex128():
     """A polychromatic kernel set built on the card, applied through the
     int8 kernels, against a complex128 zoom-DFT apply of the same kernels."""
     import lithographysimulator_tpu_torch as lt
-    from lithographysimulator_tpu_torch.ops.abbe import (_postprocess_gau23,
-                                                         _zoom_dft_kernel)
+    from lithographysimulator_tpu_torch.ops.abbe import (_zoom_dft_kernel,
+                                                         postprocess_gau23)
     from lithographysimulator_tpu_torch.ops.kernels import intensity_int8 as ik
 
     dev = _cuda()
@@ -548,7 +604,7 @@ def test_chromatic_socs_int8_apply_matches_complex128():
                         dtype=torch.complex128, device=dev)
     fields = t @ (socs.kernels * spectrum).to(torch.complex128) @ t.T
     acc = torch.sum(socs.eigenvalues.double()[:, None, None] * fields.abs() ** 2, dim=0)
-    assert _nrms(img.cpu(), _postprocess_gau23(acc, cfg).cpu()) < TOL
+    assert _nrms(img.cpu(), postprocess_gau23(acc, cfg).cpu()) < TOL
 
 
 @pytest.mark.cuda

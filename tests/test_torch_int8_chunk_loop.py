@@ -1,19 +1,21 @@
 """The int8 chunk loop's dispatch, without a card.
 
-On the card, without gradients, ``ops/abbe._int8_intensity`` hands a whole
-apply or exact pass to ``intensity_int8.int8_chunk_loop``, which issues
-every chunk from native code in one host call; elsewhere (CPU tensors, an
-input that requires grad) each chunk runs through the four wrappers. Here:
+On the card ``ops/abbe.int8_intensity`` hands a whole apply or exact pass,
+with or without gradients, to ``intensity_int8.int8_chunk_loop``, which
+issues every chunk from native code in one host call; on CPU tensors each
+chunk runs through the four wrappers' plain versions. Here:
 
-* the per-chunk path runs off CUDA and under grad, and the chunk counters
-  say so (``int8_chunks.python`` moves, ``.native`` does not);
+* off CUDA, with and without grad, the SOCS apply and the exact pass
+  launch nothing and give the plain per-chunk composition bit for bit;
+* the SOCS apply and the exact engine's passes read one T0 cache
+  (``abbe.t0_operands``);
 * the rows that the native loop reads (``chunk_table``) are what the
   per-chunk loop passes to the wrappers: the addresses of ``a[c:c+chunk]``
   (or of the one array), ``starts[c:c+chunk]`` and ``weights[c:c+chunk]``,
   the arrays a chunk reads and its batch, a short last chunk included;
 * the wrapper hands the table, the operands, the workspace and the sizes
   to the library (a stub in place of ``load_library()``), counts the
-  launches and chunks, and raises naming the kernel and chunk of a refused
+  launches, and raises naming the kernel and chunk of a refused
   launch.
 
 The card tests (``tests/test_torch_cuda.py``) hold the native loop's image
@@ -136,7 +138,7 @@ def stub(monkeypatch):
 
 
 def _counts():
-    return dict(ik.LAUNCHES), dict(ik.CHUNKS)
+    return dict(ik.LAUNCHES)
 
 
 def _delta(before, after):
@@ -149,7 +151,7 @@ def test_native_loop_hands_its_operands_to_the_library(stub, kind, count, chunk,
                                                        fast):
     a, b, starts, w, t_limbs, t_scales, weights = _operands(kind, count)
     out = torch.zeros((N, N), dtype=torch.float32)
-    launches, chunks = _counts()
+    launches = _counts()
     got = ik.int8_chunk_loop(a, b, starts, w, t_limbs, t_scales, weights,
                              chunk=chunk, fast=fast, out=out)
     assert got is out
@@ -171,7 +173,6 @@ def test_native_loop_hands_its_operands_to_the_library(stub, kind, count, chunk,
         a.data_ptr(), b.data_ptr(), out.data_ptr(), starts.data_ptr()}
     per_kernel = {k: n_chunks for k in ik.CHUNK_KERNELS}
     assert _delta(launches, ik.LAUNCHES) == per_kernel
-    assert _delta(chunks, ik.CHUNKS) == {"native": n_chunks, "python": 0}
 
 
 @pytest.mark.parametrize("where,name,issued", [
@@ -182,7 +183,7 @@ def test_refused_launch_in_the_loop_names_kernel_and_chunk(stub, where, name,
     stub.err, stub.where = 9, where
     a, b, starts, w, t_limbs, t_scales, weights = _operands("socs", 6)
     out = torch.zeros((N, N), dtype=torch.float32)
-    launches, chunks = _counts()
+    launches = _counts()
     with pytest.raises(RuntimeError,
                        match=f"{name} failed to launch in chunk {where[0]} of 2"):
         ik.int8_chunk_loop(a, b, starts, w, t_limbs, t_scales, weights,
@@ -190,7 +191,6 @@ def test_refused_launch_in_the_loop_names_kernel_and_chunk(stub, where, name,
     # the launches before the refused one were issued, and are counted
     assert _delta(launches, ik.LAUNCHES) == {
         k: issued // 4 + (i < issued % 4) for i, k in enumerate(ik.CHUNK_KERNELS)}
-    assert _delta(chunks, ik.CHUNKS) == {"native": issued // 4, "python": 0}
 
 
 def test_native_loop_refuses_what_the_kernels_cannot_take(stub):
@@ -234,28 +234,87 @@ def _exact_inputs():
     pupil = pt.pupil_function(np.array([0, 0, 0.05, 0.03, 30], np.float32), cfg,
                               device="cpu")
     spectrum = pt.mask_spectrum(pt.demo_bars(cfg, device="cpu").geometry, cfg)
-    pts = pa.source_points(src)
-    return cfg, src, pupil, spectrum, -(-pts.live_count // CHUNK)
+    return cfg, src, pupil, spectrum
+
+
+def _planes(t0: np.ndarray):
+    return (torch.as_tensor(t0.real, dtype=torch.float32),
+            torch.as_tensor(t0.imag, dtype=torch.float32))
+
+
+def _plain_image(a, b, starts, w, t0, weights, cfg):
+    """The plain per-chunk composition: the four kernels' plain versions,
+    CHUNK windows a chunk, added into zeros, then post-processed."""
+    t_limbs, t_scales = ik.prepare_t0_limbs(*_planes(t0))
+    out = torch.zeros((N, N))
+    for c in range(0, starts.shape[0], CHUNK):
+        x = ik.window_product_limbs_plain(a[c:c + CHUNK] if a.shape[0] > 1 else a,
+                                          b, starts[c:c + CHUNK], w)
+        y = ik.row_limb_gemm_plain(*x, t_limbs, t_scales)
+        y = ik.row_requantize_plain(*y, t_limbs.shape[-1])
+        ik.column_intensity_int8_plain(*y, t_limbs, t_scales,
+                                       weights[c:c + CHUNK], out=out)
+    return pa.postprocess_gau23(out, cfg)
 
 
 @pytest.mark.parametrize("rank", [6, 8])
 def test_socs_apply_off_cuda_runs_the_per_chunk_path(rank):
     spectrum, socs, cfg = _socs_call(rank)
-    launches, chunks = _counts()
+    launches = _counts()
     img = pt.socs_image(spectrum, socs, cfg, engine="int8")
-    assert img.shape == (N, N) and torch.isfinite(img).all()
-    assert _delta(chunks, ik.CHUNKS) == {"native": 0, "python": -(-rank // CHUNK)}
     assert _delta(launches, ik.LAUNCHES) == dict.fromkeys(ik.CHUNK_KERNELS, 0)
+    ref = _plain_image(socs.kernels, spectrum,
+                       torch.zeros((rank, 4), dtype=torch.int32), N,
+                       pa._zoom_dft_kernel(N, cfg.wavelength_scaling().fft_size),
+                       socs.eigenvalues, cfg)
+    assert torch.equal(img, ref)
 
 
 @pytest.mark.parametrize("grad", [False, True])
 def test_exact_pass_off_cuda_and_under_grad_runs_the_per_chunk_path(grad):
-    cfg, src, pupil, spectrum, n_chunks = _exact_inputs()
+    cfg, src, pupil, spectrum = _exact_inputs()
     spectrum = spectrum.detach().clone().requires_grad_(grad)
-    chunks = dict(ik.CHUNKS)
+    launches = _counts()
     img = pa.abbe_image(spectrum, pupil, src, cfg, device="cpu", engine="int8")
     assert img.requires_grad == grad
-    assert _delta(chunks, ik.CHUNKS) == {"native": 0, "python": n_chunks}
+    assert _delta(launches, ik.LAUNCHES) == dict.fromkeys(ik.CHUNK_KERNELS, 0)
+    pts = pa.source_points(src)
+    shifts, weights = pa._pad_points(pts.shifts, pts.weights, CHUNK)
+    w = pa._window_size(N)
+    a = pupil.repeat(2, 2)[None]
+    starts = torch.as_tensor(ik.check_window_starts(
+        pa._window_starts(shifts, N, w, N // 4 - 1), w, a.shape, spectrum.shape))
+    ref = _plain_image(a, spectrum.detach(), starts, w,
+                       pa._zoom_dft_window(N, cfg.wavelength_scaling().fft_size),
+                       torch.as_tensor(weights), cfg)
+    assert torch.equal(img.detach(), ref)
     if grad:
         img.sum().backward()
         assert spectrum.grad is not None and torch.isfinite(spectrum.grad).all()
+
+
+@pytest.mark.parametrize("engine", ["int8", "matmul"])
+def test_socs_apply_and_exact_passes_share_one_t0_cache(engine):
+    """One configuration's SOCS apply (T0 the whole chirp, w = N) and two
+    exact passes on ``engine`` (T0 the window) read one T0 cache: a miss
+    for each width, then hits; its entries are the planes the engines
+    formed inline before, and their limbs."""
+    spectrum, socs, cfg = _socs_call(6)
+    _, src, pupil, exact_spectrum = _exact_inputs()
+    fft_size = cfg.wavelength_scaling().fft_size
+    pa.t0_operands.cache_clear()
+    pt.socs_image(spectrum, socs, cfg, engine="int8")
+    for _ in range(2):
+        pa.abbe_image(exact_spectrum, pupil, src, cfg, device="cpu",
+                      engine=engine)
+    info = pa.t0_operands.cache_info()
+    assert (info.misses, info.hits, info.currsize) == (2, 1, 2)
+    pt.socs_image(spectrum, socs, cfg, engine="int8")
+    assert pa.t0_operands.cache_info().hits == 2
+    for w, t0 in ((N, pa._zoom_dft_kernel(N, fft_size)),
+                  (pa._window_size(N), pa._zoom_dft_window(N, fft_size))):
+        got = pa.t0_operands(N, fft_size, w, torch.device("cpu"))
+        planes = _planes(t0)
+        for x, y in zip(got, (*planes, *ik.prepare_t0_limbs(*planes))):
+            assert torch.equal(x, y)
+    pa.t0_operands.cache_clear()

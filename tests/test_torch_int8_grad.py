@@ -235,7 +235,7 @@ def test_normalized_image_keeps_the_weights_sum_in_the_graph(inputs, engine):
         torch.as_tensor(pupil, dtype=torch.complex128),
         torch.as_tensor(spectrum, dtype=torch.complex128), shifts, w64, PCFG,
         chunk=CHUNK, engine="fft", max_abs_shift=int(np.abs(shifts).max()))
-    img64 = pa._postprocess_gau23(img64, PCFG) / w64.sum()
+    img64 = pa.postprocess_gau23(img64, PCFG) / w64.sum()
     (img64 * torch.as_tensor(m, dtype=torch.float64)).sum().backward()
     ref = w64.grad.numpy()
     assert np.abs(ref).max() > 0

@@ -130,7 +130,7 @@ def _logit_grad_f64(pp, params, target, shifts, weights) -> np.ndarray:
     w = torch.exp(logits) * (w > 0).to(torch.float64)
     image = pa.accumulate_intensity(pupil, spectrum, shifts, w, pp.config,
                                     chunk=CHUNK, engine="fft")
-    image = pa._postprocess_gau23(image, pp.config) / w.sum()
+    image = pa.postprocess_gau23(image, pp.config) / w.sum()
     loss = torch.mean((image - torch.as_tensor(target, dtype=torch.float64)) ** 2)
     (g,) = torch.autograd.grad(loss, logits)
     return g.numpy()

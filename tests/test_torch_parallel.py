@@ -372,7 +372,7 @@ def test_smo_sharded_step_matches_jax():
 
 
 def test_device_caches_keep_an_entry_a_device():
-    """Step 0's per-device caches: the int8 chirp (4 a device), the Zernike
+    """Step 0's per-device caches: T0's planes and limbs (4 a device), the Zernike
     basis (4), the resist blur transfer (2) and the bilinear resize's
     matrices (8, two a configuration's spectrum and image), each filled to
     its size
@@ -381,10 +381,10 @@ def test_device_caches_keep_an_entry_a_device():
     times round-robin, miss once a (key, device) and never again; one
     lru_cache of the old size over both devices missed every call."""
     from lithographysimulator_tpu_torch.models import resist
-    from lithographysimulator_tpu_torch.ops import hopkins, resize, zernike
+    from lithographysimulator_tpu_torch.ops import abbe, resize, zernike
 
     devices = [torch.device("cpu"), torch.device("meta")]
-    cases = [(hopkins._int8_chirp, 4, lambda i, d: (32, 32 + 8 * i, d)),
+    cases = [(abbe.t0_operands, 4, lambda i, d: (32, 32 + 8 * i, 32, d)),
              (zernike._basis_on, 4, lambda i, d: (PCFG, 5 + i, torch.float32, d)),
              (resist._transfer, 2, lambda i, d: (32, 5.0, 1.0 + i, d)),
              (resize._interp_matrix_on, 8,

@@ -324,7 +324,7 @@ def resist_paths(torch, lt, args, cfg, spectrum, pupil, src, results) -> None:
 
 def tiled_path(torch, lt, args, cfg, spectrum, pupil, src, results) -> None:
     """The --tiled trace: one 8192^2 chip, and the set-up a tile pays."""
-    from lithographysimulator_tpu_torch.ops import hopkins, resize
+    from lithographysimulator_tpu_torch.ops import abbe, resize
     from lithographysimulator_tpu_torch.ops.tiled import tile_layout
 
     big_n, n = 8192, cfg.n
@@ -364,7 +364,7 @@ def tiled_path(torch, lt, args, cfg, spectrum, pupil, src, results) -> None:
         lt.socs_image(spectrum, socs, cfg)
 
     def apply_fresh():  # the set-up every apply paid before it was cached
-        hopkins._int8_chirp.cache_clear()
+        abbe.t0_operands.cache_clear()
         resize._interp_matrix_on.cache_clear()
         apply()
 
