@@ -19,7 +19,9 @@ which costs one transform per kernel instead of one per source point.
   ``int8_fast`` engines of :mod:`.abbe` or the direct solver; the int8
   engines run the hand-written limb kernels with the full (n, n) chirp.
 * :func:`socs_image_nrms_bound` and :func:`auto_rank_socs`: the a-priori
-  image-error bound and the rank-doubling loop built on it.
+  image-error bound and the rank-doubling loop built on it;
+  :func:`socs_bound_terms` keeps the bound's mask-independent terms of a
+  kernel set, from which :func:`socs_bound_from_terms` gives a mask's bound.
 * :func:`randomized_socs_components`: the frequency-side build of a summed
   TCC over a weighted stack of component pupils, behind the vector
   (:func:`randomized_socs_vector`) and polychromatic
@@ -1164,25 +1166,31 @@ def socs_energy_captured(socs: SOCSKernels, pupil, source_map, *,
     return float(socs.eigenvalues.sum(dtype=torch.float64)) / trace
 
 
-def _tcc_diag_weighted_m2(pupil, source_map, spec) -> float:
-    """sum_k |M(k)|^2 * diag_TCC(k), diag_TCC(k) = sum_s w_s |P(k - s)|^2
-    by one circular convolution (the Abbe roll convention; the ifftshift
-    aligns the source's zero shift, as tests/test_socs_bound.py pins). The
-    raw-grid mean of the exact image in eigenvalue units, in float64."""
-    dev = _device_of(pupil, spec)
-    pupil = to_tensor(pupil, device=dev)
-    src = to_tensor(source_map, device=dev, dtype=torch.float64)
-    spec = to_tensor(spec, device=dev)
+def _tcc_diag(pupil, source_map, device) -> torch.Tensor:
+    """diag_TCC(k) = sum_s w_s |P(k - s)|^2 on ``device``, in float64, by
+    one circular convolution (the Abbe roll convention; the ifftshift
+    aligns the source's zero shift, as tests/test_socs_bound.py pins)."""
+    pupil = to_tensor(pupil, device=device)
+    src = to_tensor(source_map, device=device, dtype=torch.float64)
     p2 = pupil.abs().double().square()
-    diag = torch.fft.ifft2(torch.fft.fft2(torch.fft.ifftshift(src))
+    return torch.fft.ifft2(torch.fft.fft2(torch.fft.ifftshift(src))
                            * torch.fft.fft2(p2)).real
-    return float((spec.abs().double().square() * diag).sum())
+
+
+def _tcc_diag_weighted_m2(pupil, source_map, spec) -> float:
+    """sum_k |M(k)|^2 * diag_TCC(k) (:func:`_tcc_diag`): the raw-grid mean
+    of the exact image in eigenvalue units, in float64."""
+    dev = _device_of(pupil, spec)
+    spec = to_tensor(spec, device=dev)
+    return float((spec.abs().double().square()
+                  * _tcc_diag(pupil, source_map, dev)).sum())
 
 
 def _kept_tail_mean(kernels: torch.Tensor, eigenvalues: torch.Tensor, spec,
                     chunk: int = 16) -> float:
     """sum_j lambda_j ||phi_j * M||^2: the raw-grid mean of the SOCS image
-    in eigenvalue units, one (chunk, n, n) product at a time."""
+    in eigenvalue units, one (chunk, n, n) product at a time (the per-mask
+    form of D_kept's sum, :func:`_kept_weight_map`)."""
     spec = to_tensor(spec, device=kernels.device)
     lam = eigenvalues.to(device=kernels.device, dtype=torch.float64)
     total = torch.zeros((), dtype=torch.float64, device=kernels.device)
@@ -1191,6 +1199,91 @@ def _kept_tail_mean(kernels: torch.Tensor, eigenvalues: torch.Tensor, spec,
             dim=(-2, -1), dtype=torch.float64)
         total += (lam[s:s + chunk] * norms).sum()
     return float(total)
+
+
+def _kept_weight_map(kernels: torch.Tensor, eigenvalues: torch.Tensor,
+                     chunk: int = 16) -> torch.Tensor:
+    """D_kept(k) = sum_j lambda_j |phi_j(k)|^2 in float64 (each kernel
+    upcast before it is squared), one (chunk, n, n) slab at a time: then
+    sum_k |M(k)|^2 D_kept(k) is :func:`_kept_tail_mean` of any spectrum."""
+    lam = eigenvalues.to(device=kernels.device, dtype=torch.float64)
+    total = torch.zeros(kernels.shape[-2:], dtype=torch.float64,
+                        device=kernels.device)
+    for s in range(0, kernels.shape[0], chunk):
+        power = torch.view_as_real(kernels[s:s + chunk]).double().square().sum(-1)
+        total += (lam[s:s + chunk, None, None] * power).sum(0)
+    return total
+
+
+@dataclasses.dataclass(frozen=True)
+class SOCSBoundTerms:
+    """The terms of :func:`socs_image_nrms_bound` that depend on the kernel
+    set (with its pupil and source) alone, from :func:`socs_bound_terms`:
+    the TCC's ``trace``, the ``kept`` eigenvalue sum and the least kept
+    eigenvalue ``lam_min``, and for the refined bound the (3, n * n)
+    float64 ``maps`` 1, diag_TCC and D_kept (:func:`_tcc_diag`,
+    :func:`_kept_weight_map`), against which one reduction of |M|^2 gives
+    sum |M|^2 and both tail means; None for the sup bound."""
+
+    trace: float
+    kept: float
+    lam_min: float
+    maps: torch.Tensor | None = None
+
+
+def socs_bound_terms(socs: SOCSKernels, *, trace: float | None = None,
+                     pupil=None, source_map=None, polarization=None,
+                     apodize: bool = True,
+                     config: OpticsConfig | None = None) -> SOCSBoundTerms:
+    """The mask-independent terms of :func:`socs_image_nrms_bound` of a
+    kernel set, taking its arguments: computed once a kernel set, then
+    every mask's bound is :func:`socs_bound_from_terms`."""
+    if trace is None:
+        if pupil is None or source_map is None:
+            raise ValueError("socs_image_nrms_bound needs trace= or "
+                             "pupil=/source_map= to compute it")
+        trace = tcc_total_trace(pupil, source_map, polarization=polarization,
+                                apodize=apodize, config=config)
+    eig = socs.eigenvalues
+    kept, lam_min = torch.stack([eig.sum(dtype=torch.float64),
+                                 eig.min().double()]).tolist()
+    maps = None
+    if (pupil is not None and source_map is not None and polarization is None
+            and config is not None
+            and config.wavelength_scaling().fft_size <= 2 * socs.kernels.shape[-1]):
+        diag = _tcc_diag(pupil, source_map, socs.kernels.device)
+        maps = torch.stack([torch.ones_like(diag), diag,
+                            _kept_weight_map(socs.kernels, eig)]).flatten(1)
+    return SOCSBoundTerms(float(trace), kept, lam_min, maps)
+
+
+def socs_bound_from_terms(terms: SOCSBoundTerms, spectrum, image, *,
+                          total_weight: float | None = None) -> float:
+    """:func:`socs_image_nrms_bound` of the SOCS ``image`` of ``spectrum``
+    from its kernel set's :func:`socs_bound_terms`: on the device one
+    float64 reduction of |M|^2 (against the maps, if any) and the image's
+    peak, read back together."""
+    dev = next((x.device for x in (spectrum, image)
+                if isinstance(x, torch.Tensor)), torch.device("cpu"))
+    spectrum = to_tensor(spectrum, device=dev)
+    power = (torch.view_as_real(spectrum) if spectrum.is_complex()
+             else spectrum[..., None]).double().square().sum(-1).flatten()
+    sums = (power.sum()[None] if terms.maps is None
+            else (terms.maps * power).sum(-1))
+    peak = to_tensor(image, device=dev).max().double()[None]
+    m2, *tails, peak = torch.cat([sums, peak]).tolist()
+    dropped = max(terms.trace - terms.kept, 0.0)
+    sup_scale = min(dropped, terms.lam_min) if terms.lam_min > 0 else dropped
+    if total_weight is not None:
+        peak *= float(total_weight)
+    if peak <= 0:
+        return 0.0 if sup_scale * m2 == 0 else float("inf")
+    bound = sup_scale * m2 / peak
+    if tails:
+        a_all, a_kept = tails
+        tail_mean = max(a_all - a_kept, 1e-6 * abs(a_all))
+        bound = min(bound, 2.0 * math.sqrt(sup_scale * m2 * tail_mean) / peak)
+    return bound
 
 
 def socs_image_nrms_bound(socs: SOCSKernels, spectrum, image, *,
@@ -1220,8 +1313,10 @@ def socs_image_nrms_bound(socs: SOCSKernels, spectrum, image, *,
     With ``pupil``, ``source_map`` and ``config`` (and no
     ``polarization``: the refinement is scalar), the exact tail mean
     refines it: mean(Delta I) on the raw grid is
-    :func:`_tcc_diag_weighted_m2` minus :func:`_kept_tail_mean` (floored at
-    1e-6 of the former, the float rounding floor), and with
+    :func:`_tcc_diag_weighted_m2` minus :func:`_kept_tail_mean`, which is
+    sum_k |M(k)|^2 (diag_TCC(k) - D_kept(k)) over the kernel set's maps
+    (:func:`socs_bound_terms`; floored at 1e-6 of the former, the float
+    rounding floor), and with
     0 <= Delta I <= S, RMS <= 2 sqrt(S mean(Delta I)), the 2 from a
     post-process that reuses a raw pixel at most 4 times. Divergence from
     the JAX package, on purpose (ROADMAP.md Queue 3, R1): the image is the
@@ -1235,33 +1330,11 @@ def socs_image_nrms_bound(socs: SOCSKernels, spectrum, image, *,
     values under-estimate the true ones), so the bound holds in practice,
     not as a theorem (R2). It covers SOCS truncation only, not the int8
     apply's ~1e-7 limb quantization."""
-    if trace is None:
-        if pupil is None or source_map is None:
-            raise ValueError("socs_image_nrms_bound needs trace= or "
-                             "pupil=/source_map= to compute it")
-        trace = tcc_total_trace(pupil, source_map, polarization=polarization,
-                                apodize=apodize, config=config)
-    refine = (pupil is not None and source_map is not None
-              and polarization is None and config is not None)
-    eig = socs.eigenvalues
-    kept = float(eig.sum(dtype=torch.float64))
-    dropped = max(trace - kept, 0.0)
-    lam_min = float(eig.min())
-    sup_scale = min(dropped, lam_min) if lam_min > 0 else dropped
-    m2 = _field_power(spectrum)
-    peak = float(image.max())
-    if total_weight is not None:
-        peak *= float(total_weight)
-    if peak <= 0:
-        return 0.0 if sup_scale * m2 == 0 else float("inf")
-    bound = sup_scale * m2 / peak
-    n = socs.kernels.shape[-1]
-    if refine and config.wavelength_scaling().fft_size <= 2 * n:
-        a_all = _tcc_diag_weighted_m2(pupil, source_map, spectrum)
-        a_kept = _kept_tail_mean(socs.kernels, eig, spectrum)
-        tail_mean = max(a_all - a_kept, 1e-6 * abs(a_all))
-        bound = min(bound, 2.0 * math.sqrt(sup_scale * m2 * tail_mean) / peak)
-    return bound
+    return socs_bound_from_terms(
+        socs_bound_terms(socs, trace=trace, pupil=pupil, source_map=source_map,
+                         polarization=polarization, apodize=apodize,
+                         config=config),
+        spectrum, image, total_weight=total_weight)
 
 
 def auto_rank_socs(

@@ -40,8 +40,9 @@ Endpoints (JSON bodies; arrays as nested lists or base64 float32):
   ``socs_cache_bytes``; ROADMAP.md D12: the JAX worker's ``live_programs``
   and ``jit_cache_clears`` count XLA programs, which the port does not
   compile), the cache's look-ups since the process started
-  (``socs_cache_hits``, ``socs_cache_misses``, ``socs_cache_evictions``)
-  and the int8 kernels' launches by kernel (``int8_launches``).
+  (``socs_cache_hits``, ``socs_cache_misses``, ``socs_cache_evictions``,
+  ``socs_cache_key_reuses``, ``socs_cache_bound_from_entry``) and the int8
+  kernels' launches by kernel (``int8_launches``).
 
 While a profiler trace records (:mod:`.utils.profiling`), a worker's POST
 carries a request id, issued as its body arrives, on its spans:
@@ -913,6 +914,8 @@ class LithoService:
             "socs_cache_hits": cache["hits"],
             "socs_cache_misses": cache["misses"],
             "socs_cache_evictions": cache["evictions"],
+            "socs_cache_key_reuses": cache["key_reuses"],
+            "socs_cache_bound_from_entry": cache["bound_from_entry"],
             "int8_launches": dict(LAUNCHES),
             **device_info(self.device),
         }

@@ -13,12 +13,14 @@ report; and the rigorous image in the resist film, exact
 
 While a profiler trace records (:mod:`.utils.profiling`), :func:`simulate`
 marks its call (``litho.simulate``) and, within it, the host inputs
-(``.inputs``: the source map, its points, the geometry's upload), the
-kernel set's cache key, look-up and any build (``.kernels``), the spectrum
-(``.spectrum``), the apply (``.apply``), the image-error bound (``.bound``)
-and the final synchronize (``.sync``); :func:`simulate_batch` marks its
+(``.inputs``: the source map, its points on the exact paths, the
+geometry's upload), the kernel set's cache key, look-up and any build
+(``.kernels``), the spectrum (``.spectrum``), the apply (``.apply``), the
+image-error bound (``.bound``) and the final synchronize (``.sync``); :func:`simulate_batch` marks its
 call (``litho.simulate_batch``) and kernel set (``.kernels``). The kernel
-set cache counts its hits, misses and evictions (:func:`socs_cache_counts`).
+set cache counts its hits, misses and evictions, the look-ups that reused
+the last source map's key and the bounds computed from an entry's terms
+(:func:`socs_cache_counts`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import dataclasses
 import functools
 import threading
 import time
-from typing import Literal
+from typing import Literal, NamedTuple
 
 import numpy as np
 import torch
@@ -40,11 +42,11 @@ from .models.pupil import pupil_function
 from .ops.abbe import _pad_points, abbe_image_points, source_points
 from .ops.focus import chromatic_aberrations
 from .ops.fraunhofer import mask_spectrum
-from .ops.hopkins import (SOCSKernels, _field_power, channel_gram,
-                          chromatic_component_stack, lean_auto,
+from .ops.hopkins import (SOCSBoundTerms, SOCSKernels, _field_power,
+                          channel_gram, chromatic_component_stack, lean_auto,
                           randomized_socs, randomized_socs_chromatic,
                           randomized_socs_vector, rotation_from_gram,
-                          socs_image, socs_image_nrms_bound,
+                          socs_bound_from_terms, socs_bound_terms, socs_image,
                           vector_component_stack, vector_pupil_power)
 from .ops.perturb import apply_perturbation
 from .ops.vector import vector_abbe_image
@@ -195,31 +197,80 @@ def _pupil_power(pupil, config, polarization, apodize) -> float:
 # oldest go first): 16 kernel sets of rank 256 at 2048^2 would hold 137 GB.
 # A server's batch worker and job runner share it, so every look-up,
 # insertion and eviction holds the lock; builds run outside it (two threads
-# that miss on one key both build, and the second insertion wins).
+# that miss on one key both build, and the second insertion wins). An entry
+# holds what a warm call needs besides its mask: the kernels, the bound's
+# kernel-set terms and the source's live count and weight sum.
 _SOCS_BUILD_CACHE: dict = {}
 _SOCS_BUILD_CACHE_LOCK = threading.Lock()
-_SOCS_CACHE_COUNTS = Counters("socs_cache", ("hits", "misses", "evictions"))
+_SOCS_CACHE_COUNTS = Counters("socs_cache", ("hits", "misses", "evictions",
+                                             "key_reuses", "bound_from_entry"))
 _SOCS_BUILD_CACHE_MAX = 16
 _SOCS_BUILD_CACHE_BYTES = 16e9
+# the last source map's key bytes, under the cache's lock (_source_key)
+_SOURCE_KEY_MEMO = None
 
 _AUTO_RANK_START = 32
 _AUTO_RANK_MAX = 512
 _AUTO_ENERGY_TARGET = 0.999
 
 
+class _SOCSEntry(NamedTuple):
+    """One kernel set of the cache, with what a warm call reads of it."""
+
+    socs: SOCSKernels
+    pupil: torch.Tensor
+    energy: float
+    bound: float | None  # tolerance mode's bound of its mask, else None
+    terms: SOCSBoundTerms  # the bound's mask-independent terms
+    live_count: int  # the source's live points
+    w_sum: float  # the source's weight sum, in float64
+
+
+def _holds_bytes(a: np.ndarray, key: bytes) -> bool:
+    """Whether ``a.tobytes() == key``, compared in place, word by word."""
+    if a.nbytes != len(key) or a.dtype.hasobject:
+        return False
+    a = np.ascontiguousarray(a)
+    words = np.uint64 if a.nbytes % 8 == 0 else np.uint8
+    return bool(np.array_equal(a.reshape(-1).view(words),
+                               np.frombuffer(key, words)))
+
+
+def _source_key(src_np: np.ndarray) -> bytes:
+    """``src_np.tobytes()`` for the cache key. While the map holds the
+    bytes of the last map keyed, it is that very bytes object, whose hash
+    Python keeps: a warm look-up neither serializes nor hashes the map
+    again. The memo is the bytes themselves, a copy of the map, so an
+    in-place change to the caller's array misses it."""
+    global _SOURCE_KEY_MEMO
+    with _SOCS_BUILD_CACHE_LOCK:
+        memo = _SOURCE_KEY_MEMO
+    if memo is not None and _holds_bytes(src_np, memo):
+        _SOCS_CACHE_COUNTS.add("key_reuses")
+        return memo
+    key = src_np.tobytes()
+    with _SOCS_BUILD_CACHE_LOCK:
+        _SOURCE_KEY_MEMO = key
+    return key
+
+
 def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
                          aberrations: np.ndarray, rank: int | str, *, device,
                          polarization=None, apodize: bool = True,
                          chromatic=None, tolerance: float | None = None,
-                         geometry=None, chunk: int = 4, mask3d=None):
-    """Returns ``(socs, pupil, energy, bound)`` for a build on ``device``
-    (scalar, vector with ``polarization``, polychromatic with
-    ``chromatic``). ``rank='auto'`` grows the rank from 32 by doubling until
-    the kept eigenvalues capture 99.9% of the trace or, with
+                         geometry=None, chunk: int = 4, mask3d=None) -> _SOCSEntry:
+    """The cache's :class:`_SOCSEntry` for a build on ``device`` (scalar,
+    vector with ``polarization``, polychromatic with ``chromatic``).
+    ``rank='auto'`` grows the rank from 32 by doubling until the kept
+    eigenvalues capture 99.9% of the trace or, with
     ``tolerance``, until :func:`..ops.hopkins.socs_image_nrms_bound` of
     the mask ``geometry`` is <= tolerance (its apply uses the caller's
     ``chunk`` and ``mask3d``; the bound does not depend on normalization).
-    ``bound`` is None unless tolerance mode ran."""
+    ``bound`` is None unless tolerance mode ran. ``terms`` are the bound's
+    mask-independent terms (:func:`..ops.hopkins.socs_bound_terms`):
+    refined for scalar kernels; for vector and chromatic kernels the sup
+    bound's, as the JAX package reports it (R5, reproduced on purpose: its
+    simulate.py:889-894 passes pupil=None)."""
     device = torch.device(device)
     if tolerance is not None and geometry is None:
         raise ValueError("socs tolerance mode needs the mask geometry "
@@ -230,7 +281,7 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
     geo = (None if tolerance is None
            else geometry.detach().cpu().numpy() if isinstance(geometry, torch.Tensor)
            else np.asarray(geometry))
-    key = (config, src_np.tobytes(), aberrations.tobytes(), rank, polarization,
+    key = (config, _source_key(src_np), aberrations.tobytes(), rank, polarization,
            apodize, chromatic, tolerance,
            None if geo is None else geo.tobytes(),
            chunk if tolerance is not None else None,
@@ -243,8 +294,9 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
     pupil = pupil_function(aberrations, config, device=device)
     src = to_tensor(src_np, device=device, dtype=torch.float32)
     scalar = polarization is None and chromatic is None
-    trace = (float(src_np.sum(dtype=np.float64))
-             * _pupil_power(pupil, config, polarization, apodize))
+    w_sum = float(src_np.sum(dtype=np.float64))
+    live_count = int(np.count_nonzero(src_np > 0))
+    trace = w_sum * _pupil_power(pupil, config, polarization, apodize)
     # aberration-independent channel rotation, shared by every doubling
     rot = _channel_rotation_cached(config, polarization, apodize, chromatic,
                                    str(device))
@@ -259,23 +311,17 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
         kept = float(socs.eigenvalues.sum(dtype=torch.float64))
         return kept / trace if trace > 0 else 1.0
 
-    bound = None
+    def terms_of(socs):
+        if not scalar:
+            return socs_bound_terms(socs, trace=trace)
+        return socs_bound_terms(socs, trace=trace, pupil=pupil,
+                                source_map=src, config=config)
+
+    bound = terms = None
     if tolerance is not None:
         spectrum = mask_spectrum(
             _thick(torch.as_tensor(geo, device=device), config, mask3d),
             config, solver="gau23")
-
-        def bound_of(socs):
-            image = socs_image(spectrum, socs, config, chunk=chunk)
-            if not scalar:
-                # R5, reproduced on purpose: for vector and chromatic
-                # kernels the JAX package reports the unrefined sup bound
-                # (simulate.py:889-894 passes pupil=None), so the port
-                # reports the same class.
-                return socs_image_nrms_bound(socs, spectrum, image, trace=trace)
-            return socs_image_nrms_bound(
-                socs, spectrum, image, trace=trace, pupil=pupil,
-                source_map=src, config=config)
 
     if rank == "auto":
         # Grow the rank until the energy target (or tolerance) is met.
@@ -289,7 +335,7 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
             n_comp *= chromatic.samples
         if channel_k is not None:
             n_comp = channel_k
-        max_rank = max(1, min(_AUTO_RANK_MAX, n_comp * int((src_np > 0).sum())))
+        max_rank = max(1, min(_AUTO_RANK_MAX, n_comp * live_count))
         r = min(_AUTO_RANK_START, max_rank)
         basis = None
         while True:
@@ -304,7 +350,9 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
                 socs = build(r)
             energy = energy_of(socs)
             if tolerance is not None:
-                bound = bound_of(socs)
+                terms = terms_of(socs)
+                bound = socs_bound_from_terms(
+                    terms, spectrum, socs_image(spectrum, socs, config, chunk=chunk))
                 done = bound <= tolerance
             else:
                 done = energy >= _AUTO_ENERGY_TARGET
@@ -316,7 +364,9 @@ def _socs_kernels_cached(config: OpticsConfig, src_np: np.ndarray,
     else:
         socs = build(int(rank))
         energy = energy_of(socs)
-    hit = (socs, pupil, energy, bound)
+    hit = _SOCSEntry(socs, pupil, energy, bound,
+                     terms_of(socs) if terms is None else terms,
+                     live_count, w_sum)
     with _SOCS_BUILD_CACHE_LOCK:
         _SOCS_BUILD_CACHE[key] = hit
         while len(_SOCS_BUILD_CACHE) > 1 and (
@@ -337,7 +387,10 @@ def socs_cache_stats() -> tuple[int, int]:
 
 def socs_cache_counts() -> dict:
     """The SOCS kernel-set cache's look-ups that hit, those that missed
-    (and built), and the entries evicted, since the process started."""
+    (and built), the entries evicted, the look-ups that reused the last
+    source map's key (``key_reuses``) and the SOCS calls whose bound came
+    from their entry's terms (``bound_from_entry``), since the process
+    started."""
     return _SOCS_CACHE_COUNTS.snapshot()
 
 
@@ -352,23 +405,6 @@ def _socs_apply(geometry, socs: SOCSKernels, config, *, chunk, normalize,
                              solver="gau23")
     image = socs_image(spectrum, socs, config, chunk=chunk)
     return _normalized(image, w_sum) if normalize else image
-
-
-def _socs_bound(socs, spectrum, image, pupil, src_np, config, *, energy,
-                polarization, chromatic, total_weight) -> float:
-    """:func:`..ops.hopkins.socs_image_nrms_bound` of a pinned-rank or
-    energy-target run: refined for scalar kernels; for vector and chromatic
-    kernels the sup bound, as the JAX package reports it (R5, reproduced on
-    purpose: its simulate.py:889-894 passes pupil=None), with trace = kept
-    / energy covering both operators."""
-    if polarization is None and chromatic is None:
-        return socs_image_nrms_bound(
-            socs, spectrum, image, pupil=pupil, source_map=src_np,
-            config=config, total_weight=total_weight)
-    kept = float(socs.eigenvalues.sum(dtype=torch.float64))
-    return socs_image_nrms_bound(
-        socs, spectrum, image, trace=kept / energy if energy > 0 else 0.0,
-        total_weight=total_weight)
 
 
 def simulate(
@@ -432,39 +468,41 @@ def simulate(
         with span("litho.simulate.inputs"):
             src_np, aberrations = _host_inputs(source_map, aberrations)
             polarization = _polarization_key(polarization)
-            pts = source_points(src_np)
+            # the SOCS path reads the live count from its cache entry
+            pts = None if solver == "socs" else source_points(src_np)
             geometry = mask.geometry.to(device)
         socs_report = {}
         if solver == "socs":
-            w_sum = float(src_np.sum(dtype=np.float64))
             with span("litho.simulate.kernels"):
-                socs, pupil, energy, bound = _socs_kernels_cached(
+                entry = _socs_kernels_cached(
                     config, src_np, aberrations, socs_rank, device=device,
                     polarization=polarization, apodize=apodize,
                     chromatic=chromatic, tolerance=socs_tolerance,
                     geometry=mask.geometry, chunk=chunk, mask3d=mask3d)
+            socs, pupil, live_count = entry.socs, entry.pupil, entry.live_count
             with span("litho.simulate.spectrum"):
                 spectrum = mask_spectrum(_thick(geometry, config, mask3d),
                                          config, solver="gau23")
             with span("litho.simulate.apply"):
                 image = socs_image(spectrum, socs, config, chunk=chunk)
                 if normalize:
-                    image = _normalized(image, w_sum)
+                    image = _normalized(image, entry.w_sum)
+            bound = entry.bound
             if bound is None:
-                # the accuracy class of the run, from pieces already in hand
+                # the accuracy class of the run: the mask's share of the
+                # bound, from the entry's kernel-set terms
                 with span("litho.simulate.bound"):
-                    bound = _socs_bound(socs, spectrum, image, pupil, src_np,
-                                        config, energy=energy,
-                                        polarization=polarization,
-                                        chromatic=chromatic,
-                                        total_weight=(w_sum if normalize
-                                                      else None))
+                    bound = socs_bound_from_terms(
+                        entry.terms, spectrum, image,
+                        total_weight=entry.w_sum if normalize else None)
+                _SOCS_CACHE_COUNTS.add("bound_from_entry")
             socs_report = {"socs_rank": socs.rank,
-                           "socs_energy_captured": round(float(energy), 6),
+                           "socs_energy_captured": round(float(entry.energy), 6),
                            "socs_image_nrms_bound": float(bound)}
             if socs_tolerance is not None:
                 socs_report["socs_tolerance"] = float(socs_tolerance)
         else:
+            live_count = pts.live_count
             shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)
             with span("litho.simulate.spectrum"):
                 spectrum = mask_spectrum(_thick(geometry, config, mask3d),
@@ -495,7 +533,7 @@ def simulate(
         "beta": ws.beta,
         "fft_size": ws.fft_size,
         "epsilon": ws.epsilon,
-        "source_points": pts.live_count,
+        "source_points": live_count,
         "polarization": (str(polarization) if polarization is not None
                          else "scalar"),
         "chromatic": (f"{chromatic.shape} E95={chromatic.bandwidth_pm}pm "
@@ -555,15 +593,14 @@ def simulate_batch(
         images = torch.empty_like(geometries)
         if solver == "socs":
             with span("litho.simulate_batch.kernels"):
-                socs = _socs_kernels_cached(
+                entry = _socs_kernels_cached(
                     config, src_np, aberrations, socs_rank, device=device,
                     polarization=polarization, apodize=apodize,
-                    chromatic=chromatic)[0]
-            w_sum = float(src_np.sum(dtype=np.float64))
+                    chromatic=chromatic)
             for b, geometry in enumerate(geometries):
-                images[b] = _socs_apply(geometry, socs, config, chunk=chunk,
-                                        normalize=normalize, w_sum=w_sum,
-                                        mask3d=mask3d)
+                images[b] = _socs_apply(geometry, entry.socs, config,
+                                        chunk=chunk, normalize=normalize,
+                                        w_sum=entry.w_sum, mask3d=mask3d)
         else:
             pts = source_points(src_np)
             shifts, weights = _pad_points(pts.shifts, pts.weights, chunk)

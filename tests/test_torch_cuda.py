@@ -559,6 +559,61 @@ def test_socs_path_end_to_end():
 
 
 @pytest.mark.cuda
+def test_warm_socs_call_uploads_nothing_and_reads_back_once():
+    """A warm simulate(solver='socs', socs_rank=256) at the clip optics,
+    1024^2: under torch.profiler no host-to-device copy and one
+    device-to-host read-back (the bound's scalars, from the cache entry's
+    terms); its image equals, by SHA-256, the public apply of the entry's
+    kernels, and its bound the public socs_image_nrms_bound, which takes
+    the kernel set's terms afresh."""
+    import hashlib
+    import importlib
+
+    import lithographysimulator_tpu_torch as lt
+
+    psim = importlib.import_module("lithographysimulator_tpu_torch.simulate")
+    dev = _cuda()
+    cfg = lt.OpticsConfig(pixel_number=1024)
+    src = lt.LightSource(cfg, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
+    ab = np.asarray([0, 0, 0.01, 0, 100, 0.01, 0, 0.01, 0.01, 0.01], np.float32)
+    x = np.arange(1024)
+    geometry = (((x[:, None] // 8) % 4 == 0) | ((x[None, :] // 32) % 5 == 0))
+    mask = lt.Mask(geometry=torch.as_tensor(geometry.astype(np.float32), device=dev),
+                   config=cfg)
+
+    def run():
+        return lt.simulate(mask, src, ab, device=dev, solver="socs",
+                           socs_rank=256)
+
+    run()  # builds the kernel set, its terms and the library
+    run()  # warms every shape
+    before = psim.socs_cache_counts()
+    out = []
+    _, names, _, _ = _traced_device(lambda: out.append(run()))
+    counts = psim.socs_cache_counts()
+    assert counts["key_reuses"] == before["key_reuses"] + 1
+    assert counts["bound_from_entry"] == before["bound_from_entry"] + 1
+    copies = [n for n in names if n.startswith("Memcpy")]
+    print(f"warm call's copies: {copies}")
+    assert [n for n in copies if "HtoD" in n] == []
+    assert len([n for n in copies if "DtoH" in n]) == 1
+    (res,) = out
+    socs = psim._socs_kernels_cached(cfg, np.asarray(src), ab, 256,
+                                     device=dev).socs
+    image = lt.socs_image(res.spectrum, socs, cfg)
+
+    def sha(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    assert sha(res.image) == sha(image)
+    bound = lt.socs_image_nrms_bound(socs, res.spectrum, image, pupil=res.pupil,
+                                     source_map=src, config=cfg)
+    print(f"bound from the entry {res.report['socs_image_nrms_bound']!r}, "
+          f"public {bound!r}")
+    assert abs(res.report["socs_image_nrms_bound"] - bound) <= 1e-5 * bound
+
+
+@pytest.mark.cuda
 def test_vector_exact_int8_matches_f32():
     """The unpolarized vector image on the card (six component passes
     through the int8 kernels) against the f32 matmul engine, TF32 off."""

@@ -284,11 +284,13 @@ def test_health(server):
 
 
 def test_health_counts_the_cache_and_the_launches(server):
-    """/health adds the SOCS kernel-set cache's hits, misses and evictions
-    and the int8 launches by kernel (none on the CPU) to its keys; a SOCS
-    request's look-up shows among them."""
+    """/health adds the SOCS kernel-set cache's hits, misses, evictions,
+    key reuses and bounds from an entry's terms, and the int8 launches by
+    kernel (none on the CPU) to its keys; a SOCS request's look-up shows
+    among them."""
     before = _get(server, "/health")[1]
-    keys = ("socs_cache_hits", "socs_cache_misses", "socs_cache_evictions")
+    keys = ("socs_cache_hits", "socs_cache_misses", "socs_cache_evictions",
+            "socs_cache_key_reuses", "socs_cache_bound_from_entry")
     assert all(isinstance(before[k], int) and before[k] >= 0 for k in keys)
     assert set(before["int8_launches"]) == {
         "window_product_limbs", "row_limb_gemm", "row_requantize",

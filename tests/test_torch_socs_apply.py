@@ -13,7 +13,11 @@ so both apply the SAME kernels. Tolerances:
   Where fft_size > 2n the port reports the sup bound on purpose (ROADMAP.md
   Queue 3, R1), and the test holds it to bound >= measured;
 * ``auto_rank_socs``: the rank JAX chooses, the JAX tests' energy and
-  tolerance criteria (test_hopkins.py:269-277, test_socs_bound.py:136-166).
+  tolerance criteria (test_hopkins.py:269-277, test_socs_bound.py:136-166);
+* the bound from a kernel set's stored terms (``socs_bound_terms``,
+  ``socs_bound_from_terms``): 1e-5 relative to the public function and to
+  the bound composed from its parts, on two masks; their maps against
+  ``_tcc_diag_weighted_m2`` and ``_kept_tail_mean``: 1e-6 relative.
 """
 
 import numpy as np
@@ -263,6 +267,89 @@ def test_nrms_bound_dominates_exact_and_randomized(demo):
         bound = ph.socs_image_nrms_bound(socs, _t(spec), img, pupil=_t(pup),
                                          source_map=src, config=pcfg)
         assert bound >= normalized_rms(_np(img), exact), rank
+
+
+def test_bound_maps_give_the_tail_means(setup):
+    """The stored maps against |M|^2: diag_TCC gives _tcc_diag_weighted_m2
+    and D_kept gives _kept_tail_mean, for two masks; the ones row gives
+    sum |M|^2."""
+    spec, pup, src, _, ps = setup
+    terms = ph.socs_bound_terms(ps, pupil=_t(pup), source_map=src, config=PCFG)
+    assert terms.maps.shape == (3, CFG.n * CFG.n)
+    assert terms.maps.dtype == torch.float64
+    rng = np.random.default_rng(3)
+    other = (rng.standard_normal(spec.shape)
+             + 1j * rng.standard_normal(spec.shape)).astype(np.complex64)
+    for m in (spec, other):
+        power = torch.as_tensor(np.abs(m.astype(np.complex128)) ** 2).flatten()
+        ones, a_all, a_kept = (terms.maps * power).sum(-1).tolist()
+        assert _rel(ones, power.sum()) < 1e-12
+        assert _rel(a_all, ph._tcc_diag_weighted_m2(_t(pup), src, _t(m))) < 1e-6
+        assert _rel(a_kept, ph._kept_tail_mean(ps.kernels, ps.eigenvalues,
+                                               _t(m))) < 1e-6
+
+
+def _bound_by_parts(socs, spec, img, trace, *, pupil=None, src=None,
+                    total_weight=None):
+    """The bound composed as the formula reads, each part computed on its
+    own: the sup form from the trace, the eigenvalues, sum |M|^2 and the
+    peak; refined (with ``pupil``) by _tcc_diag_weighted_m2 minus
+    _kept_tail_mean."""
+    eig = socs.eigenvalues.double()
+    kept, lam_min = float(eig.sum()), float(eig.min())
+    dropped = max(trace - kept, 0.0)
+    scale = min(dropped, lam_min) if lam_min > 0 else dropped
+    m2 = float(spec.abs().double().square().sum())
+    peak = float(img.max()) * (1.0 if total_weight is None else total_weight)
+    bound = scale * m2 / peak
+    if pupil is not None:
+        a_all = ph._tcc_diag_weighted_m2(pupil, src, spec)
+        tail = max(a_all - ph._kept_tail_mean(socs.kernels, socs.eigenvalues, spec),
+                   1e-6 * abs(a_all))
+        bound = min(bound, 2.0 * np.sqrt(scale * m2 * tail) / peak)
+    return bound
+
+
+@pytest.mark.parametrize("case", ["refined", "total_weight", "sup_past_2n",
+                                  "vector"])
+def test_bound_from_stored_terms_equals_the_public_bound(demo, case):
+    """One kernel set's terms, made once, serve two masks: the bound from
+    them equals the public socs_image_nrms_bound (which takes its terms
+    afresh) and the bound composed from its parts. Refined at the demo's
+    fft_size = 2n (also with a normalized image and its total weight); the
+    sup bound past 2n (pixel_size 2.5, R1) and for a vector build (the
+    vector operator's trace, no refinement)."""
+    from lithographysimulator_tpu_torch.ops.fraunhofer import mask_spectrum
+
+    cfg, src, pup, spec, _ = demo
+    if case == "sup_past_2n":
+        cfg = jt.OpticsConfig(pixel_number=64, pixel_size=2.5)
+        pup = np.asarray(jt.pupil_function(DEMO_ABERR, cfg))
+    pcfg = config_from_jax(cfg)
+    pol = "x" if case == "vector" else None
+    if pol is None:
+        socs = ph.randomized_socs(_t(pup), src, pcfg, rank=8)
+    else:
+        socs = ph.randomized_socs_vector(_t(pup), src, pcfg, polarization=pol,
+                                         rank=8)
+    kw = dict(pupil=_t(pup), source_map=src, config=pcfg, polarization=pol)
+    terms = ph.socs_bound_terms(socs, **kw)
+    assert (terms.maps is None) == (case in ("sup_past_2n", "vector"))
+    trace = ph.tcc_total_trace(_t(pup), src, polarization=pol, config=pcfg)
+    assert _rel(terms.trace, trace) < 1e-12
+    rng = np.random.default_rng(7)
+    geometry = torch.as_tensor((rng.random((64, 64)) > 0.6).astype(np.float32))
+    w = float(src.sum()) if case == "total_weight" else None
+    for m in (_t(spec), mask_spectrum(geometry, pcfg, solver="gau23")):
+        img = ph.socs_image(m, socs, pcfg)
+        if w is not None:
+            img = img / w
+        ours = ph.socs_bound_from_terms(terms, m, img, total_weight=w)
+        assert _rel(ours, ph.socs_image_nrms_bound(socs, m, img, total_weight=w,
+                                                   **kw)) < 1e-5
+        refine = dict(pupil=_t(pup), src=src) if terms.maps is not None else {}
+        assert _rel(ours, _bound_by_parts(socs, m, img, trace, total_weight=w,
+                                          **refine)) < 1e-5
 
 
 # --- automatic rank -----------------------------------------------------------

@@ -109,6 +109,108 @@ def test_socs_cache_is_bounded_in_bytes(demo, monkeypatch):
     assert len(psim._SOCS_BUILD_CACHE) == 1
 
 
+def _counts_since(before):
+    after = psim.socs_cache_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.fixture
+def fresh_cache(monkeypatch):
+    monkeypatch.setattr(psim, "_SOCS_BUILD_CACHE", {})
+    monkeypatch.setattr(psim, "_SOURCE_KEY_MEMO", None)
+
+
+def test_source_key_is_the_maps_bytes(fresh_cache):
+    """The key memo gives a map's tobytes() and reuses the last key exactly
+    when the bytes are the same: a float64 copy of the values, a flipped
+    zero's sign, a strided view and a transposed map are other bytes."""
+    src = SRC.astype(np.float32)
+    flipped = src.copy()
+    flipped[0, 0] = -0.0 if flipped[0, 0] == 0 else 0.0
+    maps = [src, src.copy(), src.astype(np.float64), flipped, src[:, ::2],
+            src.T, np.ascontiguousarray(src.T), src[:3, :3]]
+    reused = []
+    for a in maps:
+        before = psim.socs_cache_counts()["key_reuses"]
+        assert psim._source_key(a) == a.tobytes()
+        reused.append(psim.socs_cache_counts()["key_reuses"] - before)
+    assert reused == [0, 1, 0, 0, 0, 0, 1, 0]
+
+
+def test_warm_calls_reuse_the_key_and_the_bound_terms(demo, fresh_cache):
+    """Two warm calls with one source: each counts one key reuse and one
+    bound from the entry's terms, reports the live source points as
+    source_points does, and gives the image of the kernel set's own apply
+    bit for bit, with the public bound (terms taken afresh)."""
+    from lithographysimulator_tpu_torch.ops.fraunhofer import mask_spectrum
+
+    mask, _, _ = demo
+    _socs(mask, socs_rank=16)  # builds
+    before = psim.socs_cache_counts()
+    warm = [_socs(mask, socs_rank=16) for _ in range(2)]
+    assert _counts_since(before) == {"hits": 2, "misses": 0, "evictions": 0,
+                                     "key_reuses": 2, "bound_from_entry": 2}
+    entry = psim._socs_kernels_cached(PCFG, SRC, ABERR, 16, device="cpu")
+    spectrum = mask_spectrum(mask.geometry, PCFG, solver="gau23")
+    image = pt.socs_image(spectrum, entry.socs, PCFG)
+    bound = pt.socs_image_nrms_bound(entry.socs, spectrum, image,
+                                     pupil=entry.pupil, source_map=SRC,
+                                     config=PCFG)
+    for res in warm:
+        assert res.report["source_points"] == pt.source_points(SRC).live_count
+        assert torch.equal(res.image, image)
+        assert res.report["socs_image_nrms_bound"] == pytest.approx(bound, rel=1e-5)
+
+
+def test_source_changed_in_place_misses_the_key_memo(demo, fresh_cache,
+                                                     monkeypatch):
+    """The caller's source array changed in place between two calls: the
+    second misses the key memo and the cache, and its image and report are
+    those of a fresh cache given the changed map."""
+    mask, _, _ = demo
+    src = SRC.astype(np.float32)
+    pt.simulate(mask, src, ABERR, device="cpu", solver="socs", socs_rank=8)
+    src[:, : src.shape[1] // 2] = 0  # two of the four poles go dark
+    before = psim.socs_cache_counts()
+    got = pt.simulate(mask, src, ABERR, device="cpu", solver="socs", socs_rank=8)
+    counts = _counts_since(before)
+    assert counts["key_reuses"] == 0 and counts["misses"] == 1
+    monkeypatch.setattr(psim, "_SOCS_BUILD_CACHE", {})
+    monkeypatch.setattr(psim, "_SOURCE_KEY_MEMO", None)
+    fresh = pt.simulate(mask, src.copy(), ABERR, device="cpu", solver="socs",
+                        socs_rank=8)
+    assert torch.equal(got.image, fresh.image)
+    assert got.report["source_points"] == pt.source_points(src).live_count
+    for key in ("source_points", "socs_energy_captured", "socs_image_nrms_bound"):
+        assert got.report[key] == fresh.report[key]
+
+
+def test_alternating_sources_reuse_nothing_stale(demo, fresh_cache):
+    """Two sources in turn (A B A B): no call reuses the other's key, each
+    repeat hits its own entry with its first call's image and report; then
+    A twice reuses the key once."""
+    mask, _, _ = demo
+    sources = [SRC, np.asarray(jt.LightSource(CFG, sigma_out=0.6).annular())]
+    runs = []
+    before = psim.socs_cache_counts()
+    for i in (0, 1, 0, 1):
+        runs.append(pt.simulate(mask, sources[i], ABERR, device="cpu",
+                                solver="socs", socs_rank=8))
+    counts = _counts_since(before)
+    assert counts["key_reuses"] == 0
+    assert (counts["misses"], counts["hits"]) == (2, 2)
+    for first, again in ((runs[0], runs[2]), (runs[1], runs[3])):
+        assert torch.equal(first.image, again.image)
+        assert first.report["socs_image_nrms_bound"] == again.report["socs_image_nrms_bound"]
+        assert first.report["source_points"] == again.report["source_points"]
+    assert runs[0].report["source_points"] != runs[1].report["source_points"]
+    before = psim.socs_cache_counts()
+    for _ in range(2):
+        pt.simulate(mask, sources[0], ABERR, device="cpu", solver="socs",
+                    socs_rank=8)
+    assert _counts_since(before)["key_reuses"] == 1
+
+
 def test_simulate_socs_rejections(demo):
     mask, _, _ = demo
     with pytest.raises(ValueError, match="socs_rank='auto'"):

@@ -187,7 +187,8 @@ def test_trace_writes_the_spans_beside_its_trace(tmp_path):
 
 def test_simulate_spans_and_the_cache_counts(monkeypatch):
     """Two SOCS simulate calls on an empty cache: one miss, then one hit,
-    in the totals and, for the traced call, in the recording; the traced
+    in the totals and, for the traced call, in the recording (with its
+    key's reuse and its bound from the entry); the traced
     call's spans are the pipeline's, each under the root."""
     monkeypatch.setattr(psim, "_SOCS_BUILD_CACHE", {})
     src = lt.LightSource(CFG, sigma_in=0.4, sigma_out=0.8).quasar(4, -np.pi / 8)
@@ -202,7 +203,10 @@ def test_simulate_spans_and_the_cache_counts(monkeypatch):
     after = psim.socs_cache_counts()
     assert after["hits"] == before["hits"] + 1
     assert after["misses"] == before["misses"] + 1
-    assert rec["counters"] == {"socs_cache.hits": 1}
+    # the warm call reuses the source map's key and the entry's bound terms
+    assert rec["counters"] == {"socs_cache.hits": 1,
+                               "socs_cache.key_reuses": 1,
+                               "socs_cache.bound_from_entry": 1}
     names = _by_name(rec)
     assert set(names) == {"litho.simulate", "litho.simulate.inputs",
                           "litho.simulate.kernels", "litho.simulate.spectrum",

@@ -126,6 +126,8 @@ def test_socs_cache_survives_concurrent_insertion_and_eviction(monkeypatch):
     monkeypatch.setattr(psim, "_SOCS_BUILD_CACHE", {})
     monkeypatch.setattr(psim, "_SOCS_BUILD_CACHE_MAX", 3)
     monkeypatch.setattr(psim, "_socs_build", lambda *a, **k: _FakeKernels())
+    # a fake kernel stack has no kernels to take the bound's terms from
+    monkeypatch.setattr(psim, "socs_bound_terms", lambda *a, **k: None)
 
     def fill(tag):
         for i in range(200):
