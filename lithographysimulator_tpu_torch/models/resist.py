@@ -40,17 +40,19 @@ def _as_field(x):
     return x if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _cut_lines(field, axis: int, row_step: int):
-    """(float64 host array, indices) of the cut lines a table reads: every
+def _cut_lines(field, axis: int, row_step: int, *, float64: bool = True):
+    """(host array, indices) of the cut lines a table reads: every
     ``row_step``-th row of a 2-D ``field`` (``axis=1``) or column
-    (``axis=0``, transposed). The lines are picked before the read-back,
-    so a chip on the device moves only them to the host."""
+    (``axis=0``, transposed), in float64 or, with ``float64=False``, in
+    the field's own dtype. The lines are picked before the read-back, so a
+    chip on the device moves only them to the host."""
     field = _as_field(field)
     if field.ndim != 2:
         raise ValueError(f"expected a 2-D profile, got shape {tuple(field.shape)}")
     lines = field.T if axis == 0 else field
     rows_kept = np.arange(0, lines.shape[0], row_step)
-    return np.asarray(_host(lines[::row_step]), np.float64), rows_kept
+    host = _host(lines[::row_step])
+    return np.asarray(host, np.float64) if float64 else np.asarray(host), rows_kept
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -167,23 +169,30 @@ def feature_table(profile, config: OpticsConfig, *, axis: int = 1,
     Returns arrays over features: ``row`` (cut index), ``rise_px`` /
     ``fall_px`` (subpixel edge positions along the cut), ``width_nm``,
     ``center_nm``. A tensor's kept cut lines alone are read back."""
-    arr, rows_kept = _cut_lines(profile, axis, row_step)
+    arr, rows_kept = _cut_lines(profile, axis, row_step, float64=False)
     n_cols = arr.shape[1]
-    above = arr > threshold
-    padded = np.zeros((arr.shape[0], n_cols + 2), np.int8)
-    padded[:, 1:-1] = above
-    d = np.diff(padded, axis=1)
-    r_s, c_s = np.nonzero(d == 1)    # first above-threshold pixel of a run
-    r_e, c_e = np.nonzero(d == -1)   # one past the last
-    # np.nonzero is row-major, and runs alternate start/end within a row,
-    # so the k-th start pairs with the k-th end.
-    s, e = c_s, c_e
-    prev = arr[r_s, np.maximum(s - 1, 0)]
-    cur = arr[r_s, np.minimum(s, n_cols - 1)]
+    # compared and interpolated in float64 (exact for the field's values),
+    # without a float64 copy of every cut line
+    padded = np.zeros((arr.shape[0], n_cols + 2), bool)
+    np.greater(arr, threshold, out=padded[:, 1:-1],
+               signature=(np.float64, np.float64, np.bool_))
+    # A run starts at its first above-threshold pixel and ends one past
+    # its last, where the padded line changes. np.flatnonzero is
+    # row-major, and a row's changes alternate start, end from the first.
+    changes = np.flatnonzero(padded[:, 1:] != padded[:, :-1])
+    rows, cols = np.divmod(changes, n_cols + 1)
+    r_s, s = rows[0::2], cols[0::2]
+    r_e, e = rows[1::2], cols[1::2]
+
+    def at(r, c):
+        return arr[r, c].astype(np.float64)
+
+    prev = at(r_s, np.maximum(s - 1, 0))
+    cur = at(r_s, np.minimum(s, n_cols - 1))
     frac_r = (threshold - prev) / np.maximum(cur - prev, 1e-30)
     rise = np.where(s > 0, s - 1 + np.clip(frac_r, 0.0, 1.0), s - 0.5)
-    last = arr[r_e, np.minimum(e - 1, n_cols - 1)]
-    nxt = arr[r_e, np.minimum(e, n_cols - 1)]
+    last = at(r_e, np.minimum(e - 1, n_cols - 1))
+    nxt = at(r_e, np.minimum(e, n_cols - 1))
     frac_f = (last - threshold) / np.maximum(last - nxt, 1e-30)
     fall = np.where(e < n_cols, e - 1 + np.clip(frac_f, 0.0, 1.0), e - 0.5)
     px = config.pixel_size

@@ -22,6 +22,17 @@ ensembles agree in their statistics, not their bits.
 The metrics (LER, LWR, LCDU, bridge/break rates, the edge PSD and its
 Palasantzas fit) are the JAX package's numpy code, copied, on the subpixel
 edges of :func:`.resist.feature_table`.
+
+Spans (recorded while a ``torch.profiler`` trace runs, :mod:`.._spans`) of
+an ensemble call: ``litho.stochastic`` (``trials``, ``n``) over the whole
+call; under it ``.deterministic`` (the zero-noise field, its read-back and
+the reference anchors), and per host chunk ``.trials`` (the device chain,
+waited for), ``.readback`` (the chunk's rows, runs and band to the host),
+``.edges`` (the edge tables and the run-count compare) and ``.psd`` (the
+chunk's edge PSD; the last one also the averaged PSD and its fit). The
+counters ``stochastic.trials`` and ``stochastic.readback_bytes`` count the
+trials run and every byte an ensemble call reads back to the host
+(deterministic field included), traced or not.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import math
 import numpy as np
 import torch
 
+from .._spans import Counters, span
 from ..config import OpticsConfig
 from .resist import _f32, _normalized, feature_table, fft_blur
 
@@ -41,6 +53,35 @@ from .resist import _f32, _normalized, feature_table, fft_blur
 # (trial_chunk x n^2 float32: 4 GB at 8192^2 and a chunk of 16) and one
 # trial's FFT workspace.
 _SUMMARY_BYTES = 8 << 30
+
+_COUNTS = Counters("stochastic", ("trials", "readback_bytes"))
+
+
+def stochastic_counts() -> dict:
+    """The trials the ensembles ran and the bytes they read back to the
+    host (``trials``, ``readback_bytes``), since the process started."""
+    return _COUNTS.snapshot()
+
+
+def _read_back(*tensors) -> list[np.ndarray]:
+    """The tensors on the host, their bytes counted as read back."""
+    out = [t.cpu().numpy() for t in tensors]
+    _COUNTS.add("readback_bytes", sum(a.nbytes for a in out))
+    return out
+
+
+def _device_chain(image, config, model, trials, seed, trial_chunk,
+                  row_step, dz_nm=None):
+    """:func:`_summary` of one host chunk, counted and waited for: the
+    ``.trials`` span holds the chunk's device work, and ``.readback`` only
+    the copy."""
+    with span("litho.stochastic.trials"):
+        out = _summary(image, config, model, trials, seed, trial_chunk,
+                       row_step, dz_nm)
+        if image.device.type == "cuda":
+            torch.cuda.synchronize(image.device)
+    _COUNTS.add("trials", len(trials))
+    return out
 
 
 def trial_generator(seed: int, trial: int, device) -> torch.Generator:
@@ -288,39 +329,45 @@ def stochastic_volume_ensemble(image_stack, config: OpticsConfig,
     nz, n = stack.shape[0], stack.shape[-1]
     if row_step is None:
         row_step = max(1, n // 512)
-    det = model.deterministic_volume(stack, config,
-                                     dz_nm=float(dz_nm)).cpu().numpy()
-    det_or = det if axis == 1 else det.transpose(0, 2, 1)
-    stack = _oriented(stack, axis, None)
-    rows_d, runs_d, band_d = _summary(
-        stack, config, model, range(trials), seed,
-        max(1, min(trial_chunk, trials)), row_step, float(dz_nm))
-    rows, runs, band = (rows_d.cpu().numpy(), runs_d.cpu().numpy(),
-                        band_d.cpu().numpy())
+    with span("litho.stochastic", trials=trials, n=n, nz=nz):
+        with span("litho.stochastic.deterministic"):
+            (det,) = _read_back(model.deterministic_volume(
+                stack, config, dz_nm=float(dz_nm)))
+            det_or = det if axis == 1 else det.transpose(0, 2, 1)
+            ref_centers = [_reference_centers(det_or[s], config, axis=1,
+                                              threshold=model.threshold,
+                                              row_step=row_step)
+                           for s in range(nz)]
+        stack = _oriented(stack, axis, None)
+        summary = _device_chain(stack, config, model, range(trials), seed,
+                                max(1, min(trial_chunk, trials)), row_step,
+                                float(dz_nm))
+        with span("litho.stochastic.readback"):
+            rows, runs, band = _read_back(*summary)
+        del summary
 
-    slabs = []
-    for s in range(nz):
-        ref_centers = _reference_centers(det_or[s], config, axis=1,
-                                         threshold=model.threshold,
-                                         row_step=row_step)
-        le, lw, mc = _edge_stats_trials(rows[:, s], config, axis=1,
-                                        threshold=model.threshold,
-                                        row_step=1, ref_centers=ref_centers)
-        stats = _aggregate_edge_stats(le, lw, mc)
-        pad_ref = np.pad(det_or[s] > model.threshold,
-                         ((0, 0), (1, 1))).astype(np.int8)
-        ref_runs = (np.diff(pad_ref, axis=1) == 1).sum(axis=1)
-        live = ref_runs > 0
-        if live.any():
-            cells = int(live.sum()) * trials
-            stats["break_rate"] = float(
-                (runs[:, s][:, live] > ref_runs[None, live]).sum()) / cells
-            stats["bridge_rate"] = float(
-                (runs[:, s][:, live] < ref_runs[None, live]).sum()) / cells
-        else:
-            stats["break_rate"] = stats["bridge_rate"] = 0.0
-        stats["depth_nm"] = s * float(dz_nm)
-        slabs.append(stats)
+        slabs = []
+        with span("litho.stochastic.edges"):
+            for s in range(nz):
+                le, lw, mc = _edge_stats_trials(rows[:, s], config, axis=1,
+                                                threshold=model.threshold,
+                                                row_step=1,
+                                                ref_centers=ref_centers[s])
+                stats = _aggregate_edge_stats(le, lw, mc)
+                pad_ref = np.pad(det_or[s] > model.threshold,
+                                 ((0, 0), (1, 1))).astype(np.int8)
+                ref_runs = (np.diff(pad_ref, axis=1) == 1).sum(axis=1)
+                live = ref_runs > 0
+                if live.any():
+                    cells = int(live.sum()) * trials
+                    stats["break_rate"] = float(
+                        (runs[:, s][:, live] > ref_runs[None, live]).sum()) / cells
+                    stats["bridge_rate"] = float(
+                        (runs[:, s][:, live] < ref_runs[None, live]).sum()) / cells
+                else:
+                    stats["break_rate"] = stats["bridge_rate"] = 0.0
+                stats["depth_nm"] = s * float(dz_nm)
+                slabs.append(stats)
 
     prob = band / trials
     if axis == 0:
@@ -353,16 +400,27 @@ def _reference_centers(ref_field: np.ndarray, config: OpticsConfig, *,
     return np.asarray([c.mean() for c in np.split(centers, splits)])
 
 
-def _edge_stats_trials(fields: np.ndarray, config: OpticsConfig, *,
-                       axis: int = 1, threshold: float = 0.5,
-                       row_step: int = 1, ref_centers=None):
-    """Per-trial (ler, lwr, mean_cd) lists — the streamable half of
-    :func:`_edge_stats`."""
+def _trial_tables(fields, config: OpticsConfig, *, axis: int = 1,
+                  threshold: float = 0.5, row_step: int = 1) -> list:
+    """:func:`.resist.feature_table` of each trial's field (or cut lines)."""
+    return [feature_table(f, config, axis=axis, threshold=threshold,
+                          row_step=row_step) for f in fields]
+
+
+def _features(fid: np.ndarray) -> list[np.ndarray]:
+    """Each feature's runs (indices in table order), by ascending id."""
+    order = np.argsort(fid, kind="stable")
+    return np.split(order, np.flatnonzero(np.diff(fid[order])) + 1)
+
+
+def _edge_stats_tables(tables, config: OpticsConfig, *, min_runs: int,
+                       ref_centers=None):
+    """Per-trial (ler, lwr, mean_cd) lists of the trials' feature tables;
+    a feature with fewer than ``min_runs`` runs is a fragment, not
+    tracked."""
     px = config.pixel_size
     lers, lwrs, mean_cds = [], [], []
-    for contour in fields:
-        feats = feature_table(contour, config, axis=axis,
-                              threshold=threshold, row_step=row_step)
+    for feats in tables:
         if len(feats["row"]) == 0:
             lers.append(np.nan), lwrs.append(np.nan), mean_cds.append(0.0)
             continue
@@ -371,9 +429,8 @@ def _edge_stats_trials(fields: np.ndarray, config: OpticsConfig, *,
         width = feats["width_nm"]
         fid = _assign_feature_ids(feats["center_nm"], width, ref_centers, px)
         ler_vals, lwr_vals = [], []
-        for f in np.unique(fid):
-            sel = fid == f
-            if sel.sum() < max(4, contour.shape[0] // row_step // 8):
+        for sel in _features(fid):
+            if sel.size < min_runs:
                 continue  # fragment, not a tracked feature
             ler_vals.append(3.0 * np.std(rise[sel]))
             ler_vals.append(3.0 * np.std(fall[sel]))
@@ -382,6 +439,18 @@ def _edge_stats_trials(fields: np.ndarray, config: OpticsConfig, *,
         lwrs.append(np.mean(lwr_vals) if lwr_vals else np.nan)
         mean_cds.append(float(np.mean(width)))
     return lers, lwrs, mean_cds
+
+
+def _edge_stats_trials(fields: np.ndarray, config: OpticsConfig, *,
+                       axis: int = 1, threshold: float = 0.5,
+                       row_step: int = 1, ref_centers=None):
+    """Per-trial (ler, lwr, mean_cd) lists — the streamable half of
+    :func:`_edge_stats`."""
+    tables = _trial_tables(fields, config, axis=axis, threshold=threshold,
+                           row_step=row_step)
+    return _edge_stats_tables(
+        tables, config, min_runs=max(4, fields.shape[1] // row_step // 8),
+        ref_centers=ref_centers)
 
 
 def _aggregate_edge_stats(lers, lwrs, mean_cds) -> dict:
@@ -429,70 +498,79 @@ def stochastic_ensemble(image, config: OpticsConfig,
     if row_step is None:
         row_step = max(1, n // 512)  # cap full-chip cut lines at ~512
     host_chunk = _host_chunk(n, row_step, trials)
-    det_field = model.deterministic_field(image, config).cpu().numpy()
-    img = _oriented(image, axis, None)
-    reference = (det_field > model.threshold).astype(np.float32)
-    ref_centers = _reference_centers(det_field, config, axis=axis,
-                                     threshold=model.threshold,
-                                     row_step=row_step)
-    ref_oriented = reference if axis == 1 else reference.T
-    pad_ref = np.pad(ref_oriented > 0.5, ((0, 0), (1, 1))).astype(np.int8)
-    ref_runs = (np.diff(pad_ref, axis=1) == 1).sum(axis=1)
-    live = ref_runs > 0
-    if psd:
-        psd_spacing = config.pixel_size * row_step
-        det_rows_psd = (det_field if axis == 1 else det_field.T)[::row_step]
-        psd_band = _print_band(det_rows_psd, config,
-                               threshold=model.threshold,
-                               ref_centers=ref_centers)
-        psd_rows = (det_rows_psd.shape[0] if psd_band is None
-                    else psd_band[1] - psd_band[0] + 1)
-        psd_sum = None
-        psd_edges = 0
-    lers, lwrs, mean_cds = [], [], []
-    prob_sum = np.zeros((n, n), np.float64)
-    broken = bridged = live_cells = 0
-    for start in range(0, trials, host_chunk):
-        m_tr = min(host_chunk, trials - start)
-        rows_d, runs_d, band_d = _summary(
-            img, config, model, range(start, start + m_tr), seed,
-            max(1, min(trial_chunk, m_tr)), row_step)
-        rows = rows_d.cpu().numpy()
-        runs = runs_d.cpu().numpy()
-        band = band_d.cpu().numpy()
-        del rows_d, runs_d, band_d
-        le, lw, mc = _edge_stats_trials(rows, config, axis=1,
-                                        threshold=model.threshold,
-                                        row_step=1, ref_centers=ref_centers)
-        lers += le, ; lwrs += lw, ; mean_cds += mc,
-        if psd and psd_rows >= 8:
-            part = edge_psd(rows, config, axis=1, threshold=model.threshold,
-                            spacing_nm=psd_spacing, ref_centers=ref_centers,
-                            fit=False, row_band=psd_band)
-            if part["n_edges"]:
-                add = part["psd_nm3"] * part["n_edges"]
-                psd_sum = add if psd_sum is None else psd_sum + add
-                psd_edges += part["n_edges"]
-        prob_sum += band if axis == 1 else band.T
-        if live.any():
-            broken += int((runs[:, live] > ref_runs[None, live]).sum())
-            bridged += int((runs[:, live] < ref_runs[None, live]).sum())
-            live_cells += int(live.sum()) * m_tr
-    lers = np.concatenate(lers); lwrs = np.concatenate(lwrs)
-    mean_cds = np.concatenate(mean_cds)
-    out = _aggregate_edge_stats(lers, lwrs, mean_cds)
-    out["break_rate"] = broken / live_cells if live_cells else 0.0
-    out["bridge_rate"] = bridged / live_cells if live_cells else 0.0
-    out["trials"] = trials
-    out["print_probability"] = (prob_sum / trials).astype(np.float32)
-    out["deterministic_cd_nm"] = _edge_stats(
-        det_field[None], config, axis=axis, threshold=model.threshold,
-        row_step=row_step)["mean_cd_nm"]
-    if psd:
-        spec = _psd_summary(psd_sum, psd_edges, max(psd_rows, 2),
-                            psd_spacing, fit=True)
-        spec["trials"] = trials
-        out["psd"] = spec
+    with span("litho.stochastic", trials=trials, n=n):
+        with span("litho.stochastic.deterministic"):
+            (det_field,) = _read_back(model.deterministic_field(image, config))
+            reference = (det_field > model.threshold).astype(np.float32)
+            ref_centers = _reference_centers(det_field, config, axis=axis,
+                                             threshold=model.threshold,
+                                             row_step=row_step)
+            ref_oriented = reference if axis == 1 else reference.T
+            pad_ref = np.pad(ref_oriented > 0.5,
+                             ((0, 0), (1, 1))).astype(np.int8)
+            ref_runs = (np.diff(pad_ref, axis=1) == 1).sum(axis=1)
+            live = ref_runs > 0
+            det_cd = _edge_stats(det_field[None], config, axis=axis,
+                                 threshold=model.threshold,
+                                 row_step=row_step)["mean_cd_nm"]
+            if psd:
+                psd_spacing = config.pixel_size * row_step
+                det_rows_psd = (det_field if axis == 1
+                                else det_field.T)[::row_step]
+                psd_band = _print_band(det_rows_psd, config,
+                                       threshold=model.threshold,
+                                       ref_centers=ref_centers)
+                psd_rows = (det_rows_psd.shape[0] if psd_band is None
+                            else psd_band[1] - psd_band[0] + 1)
+                psd_sum = None
+                psd_edges = 0
+        img = _oriented(image, axis, None)
+        lers, lwrs, mean_cds = [], [], []
+        prob_sum = np.zeros((n, n), np.float64)
+        broken = bridged = live_cells = 0
+        for start in range(0, trials, host_chunk):
+            m_tr = min(host_chunk, trials - start)
+            summary = _device_chain(img, config, model,
+                                    range(start, start + m_tr), seed,
+                                    max(1, min(trial_chunk, m_tr)), row_step)
+            with span("litho.stochastic.readback"):
+                rows, runs, band = _read_back(*summary)
+            del summary
+            with span("litho.stochastic.edges"):
+                tables = _trial_tables(rows, config, threshold=model.threshold)
+                le, lw, mc = _edge_stats_tables(
+                    tables, config, min_runs=max(4, rows.shape[1] // 8),
+                    ref_centers=ref_centers)
+                lers += le, ; lwrs += lw, ; mean_cds += mc,
+                if live.any():
+                    broken += int((runs[:, live] > ref_runs[None, live]).sum())
+                    bridged += int((runs[:, live] < ref_runs[None, live]).sum())
+                    live_cells += int(live.sum()) * m_tr
+            if psd and psd_rows >= 8:
+                with span("litho.stochastic.psd"):
+                    lo, hi = (0, rows.shape[1] - 1) if psd_band is None else psd_band
+                    part = _tables_psd([_band_table(t, lo, hi) for t in tables],
+                                       psd_rows, config, spacing_nm=psd_spacing,
+                                       ref_centers=ref_centers, fit=False)
+                if part["n_edges"]:
+                    add = part["psd_nm3"] * part["n_edges"]
+                    psd_sum = add if psd_sum is None else psd_sum + add
+                    psd_edges += part["n_edges"]
+            prob_sum += band if axis == 1 else band.T
+        lers = np.concatenate(lers); lwrs = np.concatenate(lwrs)
+        mean_cds = np.concatenate(mean_cds)
+        out = _aggregate_edge_stats(lers, lwrs, mean_cds)
+        out["break_rate"] = broken / live_cells if live_cells else 0.0
+        out["bridge_rate"] = bridged / live_cells if live_cells else 0.0
+        out["trials"] = trials
+        out["print_probability"] = (prob_sum / trials).astype(np.float32)
+        out["deterministic_cd_nm"] = det_cd
+        if psd:
+            with span("litho.stochastic.psd"):
+                spec = _psd_summary(psd_sum, psd_edges, max(psd_rows, 2),
+                                    psd_spacing, fit=True)
+            spec["trials"] = trials
+            out["psd"] = spec
     return out
 
 
@@ -513,33 +591,64 @@ def _assign_feature_ids(center_nm, width_nm, ref_centers, px):
 
 
 def _complete_edge_traces(contour, config, *, threshold, ref_centers):
+    """:func:`_table_traces` of the cut lines ``contour`` (R, n)."""
+    return _table_traces(feature_table(contour, config, axis=1,
+                                       threshold=threshold, row_step=1),
+                         contour.shape[0], config, ref_centers=ref_centers)
+
+
+def _table_traces(feats, rows_total: int, config, *, ref_centers):
     """Rise/fall edge-position traces (nm, one value per cut line) for
-    every feature that prints on EVERY cut line of ``contour`` (R, n); a
-    cut line with several runs anchored to one feature contributes the run
-    closest to the feature's anchor center."""
+    every feature of a feature table that prints on EVERY one of its
+    ``rows_total`` cut lines, in ascending feature id; a cut line with
+    several runs anchored to one feature contributes the run closest to
+    the median of the feature's run centers (the first in table order on a
+    tie)."""
     px = config.pixel_size
-    rows_total = contour.shape[0]
-    feats = feature_table(contour, config, axis=1, threshold=threshold,
-                          row_step=1)
     if len(feats["row"]) == 0:
         return []
     fid = _assign_feature_ids(feats["center_nm"], feats["width_nm"],
                               ref_centers, px)
+    by_id = np.argsort(fid, kind="stable")
+    ids, rows = fid[by_id], feats["row"][by_id]
+    centers = feats["center_nm"][by_id]
+    first = np.flatnonzero(np.concatenate(([True], ids[1:] != ids[:-1])))
+    count = np.diff(np.append(first, len(ids)))
+    # a feature's runs on one cut line lie together, in table order
+    block = np.concatenate(([True], (ids[1:] != ids[:-1])
+                            | (rows[1:] != rows[:-1])))
+    complete = np.add.reduceat(block.astype(np.int64), first) == rows_total
+    if not complete.any():
+        return []
+    # np.median: the middle centre, or the mean of the middle two
+    ranked = np.sort(centers)
+    ranked = ranked[np.argsort(ids[np.argsort(centers, kind="stable")],
+                               kind="stable")]
+    hi = first + count // 2
+    median = np.where(count % 2 == 1, ranked[hi],
+                      (ranked[np.maximum(hi - 1, first)] + ranked[hi]) / 2)
+    group = np.repeat(np.arange(len(first)), count)
+    dist = np.abs(centers - median[group])
+    line = np.cumsum(block) - 1
+    nearest = np.minimum.reduceat(dist, np.flatnonzero(block))
+    hits = np.flatnonzero(dist == nearest[line])
+    kept = hits[np.concatenate(([True], line[hits][1:] != line[hits][:-1]))]
+    kept = kept[complete[group[kept]]].reshape(-1, rows_total)
     traces = []
-    for f in np.unique(fid):
-        sel = fid == f
-        rows = feats["row"][sel]
-        if len(np.unique(rows)) != rows_total:
-            continue
-        centers = feats["center_nm"][sel]
-        anchor = np.median(centers)
-        # sort by (row, distance-to-anchor); keep the first run per row
-        order = np.lexsort((np.abs(centers - anchor), rows))
-        keep = order[np.concatenate(
-            ([True], rows[order][1:] != rows[order][:-1]))]
-        traces.append(feats["rise_px"][sel][keep] * px)
-        traces.append(feats["fall_px"][sel][keep] * px)
+    for run in by_id[kept]:
+        traces.append(feats["rise_px"][run] * px)
+        traces.append(feats["fall_px"][run] * px)
     return traces
+
+
+def _band_table(feats: dict, lo: int, hi: int) -> dict:
+    """The runs of a feature table on cut lines ``lo .. hi``, renumbered
+    from 0: the table :func:`.resist.feature_table` gives of those lines."""
+    sel = (feats["row"] >= lo) & (feats["row"] <= hi)
+    out = {k: v[sel] for k, v in feats.items() if k != "axis"}
+    out["row"] = out["row"] - lo
+    out["axis"] = feats["axis"]
+    return out
 
 
 def _print_band(det_rows, config, *, threshold, ref_centers):
@@ -588,23 +697,35 @@ def edge_psd(fields, config, *, axis=1, threshold=0.5, spacing_nm=None,
         fields = fields.transpose(0, 2, 1)
     if row_band is not None:
         fields = fields[:, row_band[0]:row_band[1] + 1]
-    spacing = float(spacing_nm or config.pixel_size)
     n_rows = fields.shape[1]
     if n_rows < 8:
         raise ValueError(f"need >= 8 cut lines for a PSD, got {n_rows}")
+    return _tables_psd(_trial_tables(fields, config, threshold=threshold),
+                       n_rows, config, spacing_nm=spacing_nm,
+                       ref_centers=ref_centers, fit=fit)
+
+
+def _tables_psd(tables, n_rows: int, config, *, spacing_nm=None,
+                ref_centers=None, fit=True) -> dict:
+    """:func:`edge_psd` of the trials' feature tables of ``n_rows`` cut
+    lines each."""
+    spacing = float(spacing_nm or config.pixel_size)
     psd_sum = np.zeros(n_rows // 2, np.float64)
     n_edges = 0
-    for contour in fields:
-        for trace in _complete_edge_traces(
-                contour, config, threshold=threshold,
-                ref_centers=ref_centers):
-            x = trace - trace.mean()
-            spec = np.abs(np.fft.rfft(x)[1:n_rows // 2 + 1]) ** 2
-            psd = 2.0 * spacing * spec / n_rows
-            if n_rows % 2 == 0:
-                psd[-1] *= 0.5  # Nyquist bin is not duplicated
-            psd_sum += psd
-            n_edges += 1
+    for feats in tables:
+        traces = _table_traces(feats, n_rows, config, ref_centers=ref_centers)
+        if not traces:
+            continue
+        # a trial's traces in one array; summed one by one, in order
+        x = np.stack(traces)
+        x = x - x.mean(axis=1, keepdims=True)
+        spec = np.abs(np.fft.rfft(x, axis=1)[:, 1:n_rows // 2 + 1]) ** 2
+        psd = 2.0 * spacing * spec / n_rows
+        if n_rows % 2 == 0:
+            psd[:, -1] *= 0.5  # Nyquist bin is not duplicated
+        for row in psd:
+            psd_sum += row
+        n_edges += len(traces)
     out = {
         "freq_per_nm": np.fft.rfftfreq(n_rows, d=spacing)[1:n_rows // 2 + 1],
         "n_edges": n_edges,
@@ -758,36 +879,44 @@ def stochastic_psd(image, config, model=None, *, trials=64, seed=0, axis=1,
     image = _f32(image, device)
     n = image.shape[0]
     host_chunk = _host_chunk(n, row_step, trials)
-    det_field = model.deterministic_field(image, config).cpu().numpy()
-    img = _oriented(image, axis, None)
-    ref_centers = _reference_centers(det_field, config, axis=axis,
-                                     threshold=model.threshold,
-                                     row_step=row_step)
     spacing = config.pixel_size * row_step
-    det_rows = (det_field if axis == 1 else det_field.T)[::row_step]
-    band = _print_band(det_rows, config, threshold=model.threshold,
-                       ref_centers=ref_centers)
-    n_rows = det_rows.shape[0] if band is None else band[1] - band[0] + 1
-    if n_rows < 8:
-        # a print band under 8 cut lines cannot support a PSD: the
-        # n_edges = 0 NaN result instead of a raise mid-run
-        out = _psd_summary(None, 0, max(n_rows, 2), spacing, fit=fit)
-        out["trials"] = trials
-        return out
-    psd_sum = None
-    n_edges = 0
-    for start in range(0, trials, host_chunk):
-        m_tr = min(host_chunk, trials - start)
-        rows_d, _, _ = _summary(img, config, model, range(start, start + m_tr),
-                                seed, max(1, min(trial_chunk, m_tr)), row_step)
-        part = edge_psd(rows_d.cpu().numpy(), config, axis=1,
-                        threshold=model.threshold, spacing_nm=spacing,
-                        ref_centers=ref_centers, fit=False, row_band=band)
-        del rows_d
-        if part["n_edges"]:
-            add = part["psd_nm3"] * part["n_edges"]
-            psd_sum = add if psd_sum is None else psd_sum + add
-            n_edges += part["n_edges"]
-    out = _psd_summary(psd_sum, n_edges, n_rows, spacing, fit=fit)
+    with span("litho.stochastic", trials=trials, n=n):
+        with span("litho.stochastic.deterministic"):
+            (det_field,) = _read_back(model.deterministic_field(image, config))
+            ref_centers = _reference_centers(det_field, config, axis=axis,
+                                             threshold=model.threshold,
+                                             row_step=row_step)
+            det_rows = (det_field if axis == 1 else det_field.T)[::row_step]
+            band = _print_band(det_rows, config, threshold=model.threshold,
+                               ref_centers=ref_centers)
+        n_rows = det_rows.shape[0] if band is None else band[1] - band[0] + 1
+        if n_rows < 8:
+            # a print band under 8 cut lines cannot support a PSD: the
+            # n_edges = 0 NaN result instead of a raise mid-run
+            out = _psd_summary(None, 0, max(n_rows, 2), spacing, fit=fit)
+            out["trials"] = trials
+            return out
+        img = _oriented(image, axis, None)
+        psd_sum = None
+        n_edges = 0
+        for start in range(0, trials, host_chunk):
+            m_tr = min(host_chunk, trials - start)
+            summary = _device_chain(img, config, model,
+                                    range(start, start + m_tr), seed,
+                                    max(1, min(trial_chunk, m_tr)), row_step)
+            with span("litho.stochastic.readback"):
+                (rows,) = _read_back(summary[0])
+            del summary
+            with span("litho.stochastic.psd"):
+                part = edge_psd(rows, config, axis=1,
+                                threshold=model.threshold, spacing_nm=spacing,
+                                ref_centers=ref_centers, fit=False,
+                                row_band=band)
+            if part["n_edges"]:
+                add = part["psd_nm3"] * part["n_edges"]
+                psd_sum = add if psd_sum is None else psd_sum + add
+                n_edges += part["n_edges"]
+        with span("litho.stochastic.psd"):
+            out = _psd_summary(psd_sum, n_edges, n_rows, spacing, fit=fit)
     out["trials"] = trials
     return out
