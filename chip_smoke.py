@@ -149,7 +149,13 @@ none where some were:
     the same seed gives the same fields and trial i the same field under
     trial_chunk 8 and 16, bit for bit; at 1e6 photons/nm^2 (no PAG) the
     mean field within 0.01 of deterministic_field; print probabilities in
-    [0, 1];
+    [0, 1]; the ensemble launches the edge_runs kernel
+    (csrc/stochastic_edges.cu, built here: no spills) exactly twice a
+    trial chunk, and on 16 of the card's trial fields at (16, 1024, 1024),
+    row_step 2, its count pass equals edge_runs_plain's run counts exactly
+    and its table pass the twin's edges bit for bit, twice over, with its
+    device time against its byte bound (the kernels line's edge_runs
+    entry);
 24. film_socs_kernels (nz 8, rank 96) and film_socs_stack on resist over
     BARC on Si, then DepthResist.rigorous().develop_profile_binary (56
     eikonal sweeps at (8, 1024, 1024), no grad) with the sweep rate beside
@@ -347,7 +353,12 @@ tiled_launches on phases 27-29, optimize_launches on phases 31-34,
 serve_launches on phases 36-40, parallel_launches on phases 42-46 and
 flow_launches on phases 47-48; ms,
 library_ms and bound_ms at the exact-Abbe shape, socs_ms, socs_library_ms
-and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too).
+and socs_bound_ms at (4, 1024, 1024), the shapes phases 13-16 run at too;
+and the edge_runs entry: launches in phase 23's ensemble, count_ms and
+table_ms of its two passes (time_ms), plain_ms of the plain twin's two
+passes (CUDA events around single calls: the table pass's nonzero syncs,
+so no graph) and bound_ms, the bytes read and written once over 3.35
+TB/s).
 """
 
 from __future__ import annotations
@@ -365,6 +376,9 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 CU_SOURCE = "lithographysimulator_tpu_torch/csrc/intensity_int8.cu"
+EDGES_SOURCE = "lithographysimulator_tpu_torch/csrc/stochastic_edges.cu"
+EDGES_REPLACES = ("lithographysimulator_tpu/models/resist.py:feature_table and "
+                  "the run counts of stochastic_ensemble, on the host (numpy)")
 TPU_KERNELS = "lithographysimulator_tpu/ops/kernels/intensity_int8.py"
 KERNELS = {
     "window_product_limbs": f"{TPU_KERNELS}:273-278 (quantize_cols of X in "
@@ -1615,12 +1629,89 @@ def _median_rate(torch, fn, trials: int) -> tuple:
     return trials / float(np.median(times)), times
 
 
-def phase_stochastic(torch, lt, ik, launches: dict, image, cfg) -> None:
-    """Phase 23: the stochastic ensemble in bench.py's form."""
+def _event_ms(torch, fn, reps: int = 5) -> float:
+    """Median device time of single calls of ``fn`` between two CUDA
+    events, after a warm-up call (for code that syncs, so no graph)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _edge_kernel(torch, lt, se, image, cfg, model, ensemble_launches) -> dict:
+    """Phase 23's check of the edge_runs kernel against its plain twin on
+    the card's trial fields at (16, 1024, 1024), row_step 2; returns the
+    kernels line's edge_runs entry."""
+    from lithographysimulator_tpu_torch.models import stochastic as sto
+
+    thr, row_step = model.threshold, 2
+    fields = lt.exposure_trials(image, cfg, model, trials=16, seed=7,
+                                binary=False).contiguous()
+    runs_p, counts_p = se.edge_runs_plain(fields, thr, row_step)
+    k = int(counts_p.max())
+    rise_p, fall_p = se.edge_runs_plain(fields, thr, row_step, k)
+    valid = torch.arange(k, device=fields.device) < counts_p[..., None]
+    if not torch.equal(runs_p, sto._run_counts(fields > thr)):
+        raise AssertionError("edge_runs_plain's run counts are not _run_counts'")
+    for call in range(2):
+        runs, counts = se.edge_runs(fields, thr, row_step)
+        rise, fall = se.edge_runs(fields, thr, row_step, k)
+        torch.cuda.synchronize()
+        same = (torch.equal(runs, runs_p) and torch.equal(counts, counts_p)
+                and all(torch.equal(got[valid].view(torch.int64),
+                                    want[valid].view(torch.int64))
+                        and bool(torch.isnan(got[~valid]).all())
+                        for got, want in ((rise, rise_p), (fall, fall_p))))
+        if not same:
+            raise AssertionError(f"edge_runs differs from edge_runs_plain (call {call})")
+    t, lines, n = fields.shape
+    sampled = -(-lines // row_step)
+    log(f"  edge_runs on 16 card fields (16, 1024, 1024), row_step 2: "
+        f"{int(counts_p.sum())} runs tabulated, k {k}; run counts equal, "
+        "table counts equal, edges bit for bit, twice: ok")
+    count_ms = time_ms(torch, lambda: se.edge_runs(fields, thr, row_step))
+    table_ms = time_ms(torch, lambda: se.edge_runs(fields, thr, row_step, k))
+    plain_ms = (_event_ms(torch, lambda: se.edge_runs_plain(fields, thr, row_step))
+                + _event_ms(torch, lambda: se.edge_runs_plain(fields, thr,
+                                                              row_step, k)))
+    moved = (4 * t * lines * n + 4 * t * (lines + sampled)  # count pass
+             + 4 * t * sampled * n + 16 * t * sampled * k)  # table pass
+    bound_ms = moved / 3.35e12 * 1e3
+    log(f"  edge_runs: count pass {count_ms:.4f} ms, table pass {table_ms:.4f} "
+        f"ms, plain twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+        f"{moved}), {100 * bound_ms / (count_ms + table_ms):.1f}% of bound")
+    return {"name": "edge_runs", "route": "cuda", "source": EDGES_SOURCE,
+            "replaces": EDGES_REPLACES, "launches": ensemble_launches,
+            "shape": [t, lines, n], "row_step": row_step, "k": k,
+            "ms": count_ms + table_ms, "count_ms": count_ms,
+            "table_ms": table_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes"}
+
+
+def phase_stochastic(torch, lt, ik, launches: dict, image, cfg) -> dict:
+    """Phase 23: the stochastic ensemble in bench.py's form. Returns the
+    kernels line's edge_runs entry."""
     import dataclasses
 
     from lithographysimulator_tpu_torch.models import stochastic as sto
+    from lithographysimulator_tpu_torch.ops.kernels import build
+    from lithographysimulator_tpu_torch.ops.kernels import stochastic_edges as se
 
+    _, edge_log = build.build(build.EDGES)
+    spills = {fn: b for fn, b in ptxas_spills(edge_log).items()
+              if "edge_runs_kernel" in fn}
+    for line in edge_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas (edges): {line.strip()}")
+    if len(spills) != 4 or any(spills.values()):
+        raise AssertionError(f"edge_runs: ptxas spill bytes {spills}")
     t0 = _phase_start(torch, ik)
     model = lt.StochasticResist(dose_photons_per_nm2=20.0, diffusion_nm=8.0,
                                 threshold=0.3, pag_per_nm2=5.0)
@@ -1642,8 +1733,14 @@ def phase_stochastic(torch, lt, ik, launches: dict, image, cfg) -> None:
     log(f"  exposure_summary, 16 trials, row_step 2, read back: "
         f"stochastic_e2e_trials_per_s {e2e_rate:.1f} (samples "
         f"{[round(x, 4) for x in e2e_times]} s)")
+    se.reset_launch_counts()
     out, t = _timed(torch, lambda: lt.stochastic_ensemble(
         image, cfg, model, trials=64, seed=0, psd=True))
+    edge_launches = se.LAUNCHES["edge_runs"]
+    if edge_launches != 2 * 4:  # two passes in each of 4 trial chunks of 16
+        raise AssertionError(f"stochastic_ensemble launched edge_runs "
+                             f"{edge_launches} times, not 8")
+    log(f"  stochastic_ensemble launched edge_runs {edge_launches} times")
     psd = out["psd"]
     log(f"  stochastic_ensemble, 64 trials, psd=True: {t:.3f} s ({64 / t:.1f} "
         f"trials/s): LER {out['ler_nm']:.4f} nm, LWR {out['lwr_nm']:.4f} nm, "
@@ -1685,7 +1782,9 @@ def phase_stochastic(torch, lt, ik, launches: dict, image, cfg) -> None:
     del fields, contours
     log(f"  trial streams: torch.Generator per trial, seeded from "
         f"SeedSequence((seed, i)) ({sto.trial_generator.__name__})")
+    entry = _edge_kernel(torch, lt, se, image, cfg, model, edge_launches)
     _phase_end(torch, ik, 23, t0, launches, False)
+    return entry
 
 
 def _sweep_bytes(torch, fn) -> int:
@@ -3473,7 +3572,7 @@ def main() -> int:
 
     resist_launches = {}  # phases 22-25, each counted and checked apart
     image, cfg = phase_resist(torch, lt, ik, resist_launches)
-    phase_stochastic(torch, lt, ik, resist_launches, image, cfg)
+    edge_entry = phase_stochastic(torch, lt, ik, resist_launches, image, cfg)
     del image
     phase_resist3d(torch, lt, ik, resist_launches)
     phase_calibrate_cli(torch, lt, ik, resist_launches)
@@ -3575,7 +3674,7 @@ def main() -> int:
          "serve_launches": serve_launches[k],
          "parallel_launches": parallel_launches[k],
          "flow_launches": flow_launches[k]}
-        for k in KERNELS]}))
+        for k in KERNELS] + [edge_entry]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

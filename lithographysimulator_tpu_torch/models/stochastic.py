@@ -21,18 +21,29 @@ ensembles agree in their statistics, not their bits.
 
 The metrics (LER, LWR, LCDU, bridge/break rates, the edge PSD and its
 Palasantzas fit) are the JAX package's numpy code, copied, on the subpixel
-edges of :func:`.resist.feature_table`.
+edges of :func:`.resist.feature_table`. :func:`stochastic_ensemble` computes
+the same numbers on the trials' device: the kernel ``edge_runs``
+(:mod:`..ops.kernels.stochastic_edges`) tabulates each trial's cut lines'
+runs and edges where the fields are, and :mod:`.edge_stats` reduces the
+tables in float64; only per-trial numbers, the run-count compare, the PSD
+partial and the band come back. :func:`stochastic_psd`,
+:func:`stochastic_volume_ensemble` and :func:`exposure_summary` read the
+cut lines back and keep the numpy path, which the tests hold the device
+path to.
 
 Spans (recorded while a ``torch.profiler`` trace runs, :mod:`.._spans`) of
 an ensemble call: ``litho.stochastic`` (``trials``, ``n``) over the whole
 call; under it ``.deterministic`` (the zero-noise field, its read-back and
-the reference anchors), and per host chunk ``.trials`` (the device chain,
-waited for), ``.readback`` (the chunk's rows, runs and band to the host),
-``.edges`` (the edge tables and the run-count compare) and ``.psd`` (the
-chunk's edge PSD; the last one also the averaged PSD and its fit). The
-counters ``stochastic.trials`` and ``stochastic.readback_bytes`` count the
-trials run and every byte an ensemble call reads back to the host
-(deterministic field included), traced or not.
+the reference anchors), and per host chunk ``.trials`` (the device chain
+and, in :func:`stochastic_ensemble`, the edge kernel, waited for),
+``.readback`` (the band, or the chunk's rows, runs and band, to the host),
+``.edges`` (the edge statistics and the run-count compare) and ``.psd``
+(the chunk's edge PSD; the last one also the averaged PSD and its fit),
+each ending with the copy of its results. The counters
+``stochastic.trials``, ``stochastic.readback_bytes`` and
+``stochastic.edge_runs`` count the trials run, every byte an ensemble call
+reads back to the host (deterministic field included), and the runs the
+edge kernel (or its plain twin) tabulated, traced or not.
 """
 
 from __future__ import annotations
@@ -45,21 +56,28 @@ import torch
 
 from .._spans import Counters, span
 from ..config import OpticsConfig
+from ..ops.kernels.stochastic_edges import edge_runs
+from .edge_stats import psd_partial, trial_stats, tree_sum
 from .resist import _f32, _normalized, feature_table, fft_blur
 
-# A host chunk's row summaries (trials x ceil(n / row_step) x n float32 and
-# the run counts) live on the card until read back, then on the host. 8 GB,
-# a tenth of the H100's 80 GB, leaves the rest to one trial chunk's fields
-# (trial_chunk x n^2 float32: 4 GB at 8192^2 and a chunk of 16) and one
-# trial's FFT workspace.
+# A host chunk's summaries live on the card together: its row summaries
+# (trials x ceil(n / row_step) x n float32 and the run counts) until read
+# back, then on the host; or in stochastic_ensemble its edge tables (16
+# bytes a run slot of a sampled line, counted at the most runs a line can
+# hold, ceil(n / 2), and twice: the tables and, while they widen, their
+# copy) and run counts. 8 GB, a tenth of the H100's 80 GB, leaves
+# the rest to one trial chunk's fields (trial_chunk x n^2 float32: 4 GB at
+# 8192^2 and a chunk of 16), one trial's FFT workspace and one trial
+# chunk's statistics (edge_stats._BLOCK_BYTES bounds their blocks).
 _SUMMARY_BYTES = 8 << 30
 
-_COUNTS = Counters("stochastic", ("trials", "readback_bytes"))
+_COUNTS = Counters("stochastic", ("trials", "readback_bytes", "edge_runs"))
 
 
 def stochastic_counts() -> dict:
-    """The trials the ensembles ran and the bytes they read back to the
-    host (``trials``, ``readback_bytes``), since the process started."""
+    """The trials the ensembles ran, the bytes they read back to the host
+    and the runs the edge kernel tabulated (``trials``,
+    ``readback_bytes``, ``edge_runs``), since the process started."""
     return _COUNTS.snapshot()
 
 
@@ -70,14 +88,12 @@ def _read_back(*tensors) -> list[np.ndarray]:
     return out
 
 
-def _device_chain(image, config, model, trials, seed, trial_chunk,
-                  row_step, dz_nm=None):
-    """:func:`_summary` of one host chunk, counted and waited for: the
-    ``.trials`` span holds the chunk's device work, and ``.readback`` only
-    the copy."""
+def _device_chain(summary, image, config, model, trials, *args):
+    """``summary`` (:func:`_summary` or :func:`_edge_summary`) of one host
+    chunk, counted and waited for: the ``.trials`` span holds the chunk's
+    device work, and ``.readback`` only the copy."""
     with span("litho.stochastic.trials"):
-        out = _summary(image, config, model, trials, seed, trial_chunk,
-                       row_step, dz_nm)
+        out = summary(image, config, model, trials, *args)
         if image.device.type == "cuda":
             torch.cuda.synchronize(image.device)
     _COUNTS.add("trials", len(trials))
@@ -248,6 +264,15 @@ def _run_counts(contour: torch.Tensor) -> torch.Tensor:
     return (c[..., 0].to(torch.int64) + rises).to(torch.int32)
 
 
+def _trial_fields(image, config, model, trials, seed, trial_chunk, dz_nm):
+    """(offset, fields) of each chunk of the trials ``trials`` (indices):
+    ``trial_chunk`` fields, stacked, live at once."""
+    for start in range(0, len(trials), trial_chunk):
+        yield start, torch.stack([
+            _trial_field(model, image, config, seed, t, dz_nm)
+            for t in trials[start:start + trial_chunk]])
+
+
 def _summary(image: torch.Tensor, config: OpticsConfig,
              model: StochasticResist, trials, seed: int, trial_chunk: int,
              row_step: int, dz_nm: float | None = None):
@@ -262,15 +287,57 @@ def _summary(image: torch.Tensor, config: OpticsConfig,
     runs = torch.empty((len(trials), *shape[:-1]), dtype=torch.int32,
                        device=image.device)
     band = torch.zeros(shape, dtype=torch.float32, device=image.device)
-    for start in range(0, len(trials), trial_chunk):
-        ids = trials[start:start + trial_chunk]
-        fields = torch.stack([_trial_field(model, image, config, seed, t, dz_nm)
-                              for t in ids])
+    for start, fields in _trial_fields(image, config, model, trials, seed,
+                                       trial_chunk, dz_nm):
         contour = fields > model.threshold
-        rows[start:start + len(ids)] = fields[..., ::row_step, :]
-        runs[start:start + len(ids)] = _run_counts(contour)
+        rows[start:start + len(fields)] = fields[..., ::row_step, :]
+        runs[start:start + len(fields)] = _run_counts(contour)
         band += contour.sum(dim=0, dtype=torch.float32)
     return rows, runs, band
+
+
+def _widen(table, filled: int, k: int):
+    """A NaN table as wide as ``k`` holding ``table``'s first ``filled``
+    trials (``table`` is freed when the caller drops it)."""
+    wide = torch.full((*table.shape[:2], k), float("nan"), dtype=table.dtype,
+                      device=table.device)
+    wide[:filled, :, :table.shape[-1]] = table[:filled]
+    return wide
+
+
+def _edge_summary(image: torch.Tensor, config: OpticsConfig,
+                  model: StochasticResist, trials, seed: int,
+                  trial_chunk: int, row_step: int):
+    """(runs (T, n) int32, counts (T, R) int32, rise, fall (T, R, K)
+    float64, band (n, n)) of the trials ``trials`` (indices) on an oriented
+    image, on its device: :func:`.stochastic_edges.edge_runs` of each
+    trial chunk's fields (every cut line's run count, the sampled lines'
+    runs and edges, written into the trial chunk's rows of the tables) and
+    the summed contour. K is the most runs a sampled line holds (at least
+    1): each trial chunk reads back its largest count (4 bytes), and a
+    chunk with more runs than K widens the tables."""
+    trials = list(trials)
+    lines, n = image.shape
+    thr = model.threshold
+    runs = torch.empty((len(trials), lines), dtype=torch.int32,
+                       device=image.device)
+    counts = torch.empty((len(trials), -(-lines // row_step)),
+                         dtype=torch.int32, device=image.device)
+    band = torch.zeros(image.shape, dtype=torch.float32, device=image.device)
+    rise = fall = torch.empty((len(trials), counts.shape[1], 0),
+                              dtype=torch.float64, device=image.device)
+    for start, fields in _trial_fields(image, config, model, trials, seed,
+                                       trial_chunk, None):
+        part = slice(start, start + len(fields))
+        runs[part], counts[part] = edge_runs(fields, thr, row_step)
+        (k,) = _read_back(counts[part].max())
+        if max(1, int(k)) > rise.shape[-1]:
+            rise = _widen(rise, start, max(1, int(k)))
+            fall = _widen(fall, start, rise.shape[-1])
+        edge_runs(fields, thr, row_step, rise.shape[-1],
+                  out=(rise[part], fall[part]))
+        band += (fields > thr).sum(dim=0, dtype=torch.float32)
+    return runs, counts, rise, fall, band
 
 
 def exposure_summary(image, config: OpticsConfig, model: StochasticResist, *,
@@ -305,9 +372,20 @@ def exposure_trials(image, config: OpticsConfig, model: StochasticResist, *,
     return out
 
 
-def _host_chunk(n: int, row_step: int, trials: int) -> int:
-    bytes_per_trial = (-(-n // row_step)) * n * 4 + n * 4
-    return max(1, min(trials, _SUMMARY_BYTES // max(bytes_per_trial, 1)))
+def _trial_bytes(n: int, row_step: int, edges: bool = False) -> int:
+    """A trial's bytes in a host chunk: its sampled rows and run counts, or
+    (``edges``) twice its edge tables at ceil(n / 2) runs a sampled line
+    (:func:`_edge_summary` widens them by a copy) and its two run
+    counts."""
+    sampled = -(-n // row_step)
+    if edges:
+        return sampled * (32 * -(-n // 2) + 4) + n * 4
+    return sampled * n * 4 + n * 4
+
+
+def _host_chunk(n: int, row_step: int, trials: int, edges: bool = False) -> int:
+    per_trial = _trial_bytes(n, row_step, edges)
+    return max(1, min(trials, _SUMMARY_BYTES // max(per_trial, 1)))
 
 
 def stochastic_volume_ensemble(image_stack, config: OpticsConfig,
@@ -339,9 +417,9 @@ def stochastic_volume_ensemble(image_stack, config: OpticsConfig,
                                               row_step=row_step)
                            for s in range(nz)]
         stack = _oriented(stack, axis, None)
-        summary = _device_chain(stack, config, model, range(trials), seed,
-                                max(1, min(trial_chunk, trials)), row_step,
-                                float(dz_nm))
+        summary = _device_chain(_summary, stack, config, model, range(trials),
+                                seed, max(1, min(trial_chunk, trials)),
+                                row_step, float(dz_nm))
         with span("litho.stochastic.readback"):
             rows, runs, band = _read_back(*summary)
         del summary
@@ -485,19 +563,24 @@ def stochastic_ensemble(image, config: OpticsConfig,
     Returns LER/LWR (nm, 3 sigma), LCDU across trials (nm, 3 sigma),
     bridge/break defect rates vs the deterministic contour, the mean
     contour (print probability per pixel, the 'stochastic band'), and the
-    trial count. Trials stream through the host in chunks of at most
-    ``_SUMMARY_BYTES`` of row summaries, so a full-chip ensemble never
-    holds (trials, n, n) at once.
+    trial count. Trials run in host chunks (:func:`_host_chunk`), so a
+    full-chip ensemble never holds (trials, n, n) at once; a chunk's edge
+    tables, statistics and PSD partial are formed on the image's device
+    (:func:`_edge_summary`, :mod:`.edge_stats`), and its per-trial numbers,
+    run-count tallies, PSD partial and band are read back.
 
     ``psd=True`` also accumulates the averaged edge PSD from the same
-    streamed trial rows (result key ``"psd"``, a :func:`stochastic_psd`
-    dict); its frequency ceiling follows ``row_step``."""
+    trials' sampled cut lines (result key ``"psd"``, a
+    :func:`stochastic_psd` dict); its frequency ceiling follows
+    ``row_step``."""
     model = model or StochasticResist()
     image = _f32(image, device)
     n = image.shape[0]
     if row_step is None:
         row_step = max(1, n // 512)  # cap full-chip cut lines at ~512
-    host_chunk = _host_chunk(n, row_step, trials)
+    host_chunk = _host_chunk(n, row_step, trials, edges=True)
+    sampled = -(-n // row_step)
+    px = config.pixel_size
     with span("litho.stochastic", trials=trials, n=n):
         with span("litho.stochastic.deterministic"):
             (det_field,) = _read_back(model.deterministic_field(image, config))
@@ -509,54 +592,62 @@ def stochastic_ensemble(image, config: OpticsConfig,
             pad_ref = np.pad(ref_oriented > 0.5,
                              ((0, 0), (1, 1))).astype(np.int8)
             ref_runs = (np.diff(pad_ref, axis=1) == 1).sum(axis=1)
-            live = ref_runs > 0
+            live = np.flatnonzero(ref_runs > 0)
             det_cd = _edge_stats(det_field[None], config, axis=axis,
                                  threshold=model.threshold,
                                  row_step=row_step)["mean_cd_nm"]
             if psd:
-                psd_spacing = config.pixel_size * row_step
+                psd_spacing = px * row_step
                 det_rows_psd = (det_field if axis == 1
                                 else det_field.T)[::row_step]
                 psd_band = _print_band(det_rows_psd, config,
                                        threshold=model.threshold,
                                        ref_centers=ref_centers)
-                psd_rows = (det_rows_psd.shape[0] if psd_band is None
-                            else psd_band[1] - psd_band[0] + 1)
+                lo, hi = (0, sampled - 1) if psd_band is None else psd_band
+                psd_rows = hi - lo + 1
                 psd_sum = None
                 psd_edges = 0
+            anchors = (None if ref_centers is None or not ref_centers.size else
+                       torch.as_tensor(ref_centers, dtype=torch.float64,
+                                       device=image.device))
+            live_lines = torch.as_tensor(live, device=image.device)
+            live_runs = torch.as_tensor(ref_runs[live], dtype=torch.int32,
+                                        device=image.device)
         img = _oriented(image, axis, None)
         lers, lwrs, mean_cds = [], [], []
         prob_sum = np.zeros((n, n), np.float64)
-        broken = bridged = live_cells = 0
+        broken = bridged = 0
         for start in range(0, trials, host_chunk):
             m_tr = min(host_chunk, trials - start)
-            summary = _device_chain(img, config, model,
-                                    range(start, start + m_tr), seed,
-                                    max(1, min(trial_chunk, m_tr)), row_step)
+            runs, counts, rise, fall, band = _device_chain(
+                _edge_summary, img, config, model, range(start, start + m_tr),
+                seed, max(1, min(trial_chunk, m_tr)), row_step)
             with span("litho.stochastic.readback"):
-                rows, runs, band = _read_back(*summary)
-            del summary
+                (band,) = _read_back(band)
             with span("litho.stochastic.edges"):
-                tables = _trial_tables(rows, config, threshold=model.threshold)
-                le, lw, mc = _edge_stats_tables(
-                    tables, config, min_runs=max(4, rows.shape[1] // 8),
-                    ref_centers=ref_centers)
-                lers += le, ; lwrs += lw, ; mean_cds += mc,
-                if live.any():
-                    broken += int((runs[:, live] > ref_runs[None, live]).sum())
-                    bridged += int((runs[:, live] < ref_runs[None, live]).sum())
-                    live_cells += int(live.sum()) * m_tr
+                stats = trial_stats(rise, fall, counts, anchors, px,
+                                    max(4, sampled // 8))
+                line_runs = runs[:, live_lines]
+                tally = torch.stack([(line_runs > live_runs).sum(),
+                                     (line_runs < live_runs).sum(),
+                                     counts.sum(dtype=torch.int64)])
+                stats, tally = _read_back(stats, tally)
+            lers += stats[:, 0], ; lwrs += stats[:, 1], ; mean_cds += stats[:, 2],
+            broken += int(tally[0])
+            bridged += int(tally[1])
+            _COUNTS.add("edge_runs", int(tally[2]))
             if psd and psd_rows >= 8:
                 with span("litho.stochastic.psd"):
-                    lo, hi = (0, rows.shape[1] - 1) if psd_band is None else psd_band
-                    part = _tables_psd([_band_table(t, lo, hi) for t in tables],
-                                       psd_rows, config, spacing_nm=psd_spacing,
-                                       ref_centers=ref_centers, fit=False)
-                if part["n_edges"]:
-                    add = part["psd_nm3"] * part["n_edges"]
-                    psd_sum = add if psd_sum is None else psd_sum + add
-                    psd_edges += part["n_edges"]
+                    part, edges = psd_partial(
+                        rise[:, lo:hi + 1], fall[:, lo:hi + 1],
+                        counts[:, lo:hi + 1], anchors, px, psd_spacing)
+                    part, edges = _read_back(tree_sum(part, 0), edges.sum())
+                if edges:
+                    psd_sum = part if psd_sum is None else psd_sum + part
+                    psd_edges += int(edges)
+            del runs, counts, rise, fall
             prob_sum += band if axis == 1 else band.T
+        live_cells = live.size * trials
         lers = np.concatenate(lers); lwrs = np.concatenate(lwrs)
         mean_cds = np.concatenate(mean_cds)
         out = _aggregate_edge_stats(lers, lwrs, mean_cds)
@@ -639,16 +730,6 @@ def _table_traces(feats, rows_total: int, config, *, ref_centers):
         traces.append(feats["rise_px"][run] * px)
         traces.append(feats["fall_px"][run] * px)
     return traces
-
-
-def _band_table(feats: dict, lo: int, hi: int) -> dict:
-    """The runs of a feature table on cut lines ``lo .. hi``, renumbered
-    from 0: the table :func:`.resist.feature_table` gives of those lines."""
-    sel = (feats["row"] >= lo) & (feats["row"] <= hi)
-    out = {k: v[sel] for k, v in feats.items() if k != "axis"}
-    out["row"] = out["row"] - lo
-    out["axis"] = feats["axis"]
-    return out
 
 
 def _print_band(det_rows, config, *, threshold, ref_centers):
@@ -901,7 +982,7 @@ def stochastic_psd(image, config, model=None, *, trials=64, seed=0, axis=1,
         n_edges = 0
         for start in range(0, trials, host_chunk):
             m_tr = min(host_chunk, trials - start)
-            summary = _device_chain(img, config, model,
+            summary = _device_chain(_summary, img, config, model,
                                     range(start, start + m_tr), seed,
                                     max(1, min(trial_chunk, m_tr)), row_step)
             with span("litho.stochastic.readback"):

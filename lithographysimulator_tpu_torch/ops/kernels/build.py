@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels (nvcc + ctypes).
 
-``csrc/intensity_int8.cu`` is compiled for ``sm_90a`` into a shared library
+Two sources, each compiled for ``sm_90a`` into a shared library of its own
 with a plain C interface, on first use, into ``_build/`` inside this package
-(listed in ``.gitignore``). The library's file name carries a hash of the
-source and the flags, so an edited source rebuilds and a stale library is
-never loaded. Nothing here runs at import: the CPU tests import every
-module and have no ``nvcc``.
+(listed in ``.gitignore``): ``csrc/intensity_int8.cu`` (:data:`INT8`, the
+default of every function here) and ``csrc/stochastic_edges.cu``
+(:data:`EDGES`, built with ``--fmad=false`` so that its float64 edges are
+the host's bit for bit). A library's file name carries a hash of its source
+and flags, so an edited source rebuilds, a stale library is never loaded,
+and one library's edit leaves the other's build alone. Nothing here runs at
+import: the CPU tests import every module and have no ``nvcc``.
 
 Threads of one process (a server's batch worker and job runner) may make
 their first kernel call together: builds and loads run under
@@ -17,6 +20,7 @@ thread before the finished library is moved into place.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -32,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 SIGNATURES = {
     "row_limb_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "row_requantize": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -45,9 +50,24 @@ SIGNATURES = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class Library:
+    """A CUDA source, its nvcc flags and its C functions' argument types."""
+
+    name: str
+    source: Path
+    flags: tuple
+    signatures: dict
+
+
+INT8 = Library("intensity_int8", SOURCE, NVCC_FLAGS, SIGNATURES)
+EDGES = Library("stochastic_edges", PACKAGE_DIR / "csrc" / "stochastic_edges.cu",
+                (*NVCC_FLAGS, "--fmad=false"),
+                {"edge_runs": (_P, _I, _I, _I, _I, _D, _P, _P, _P, _P, _I, _P)})
+
 #: serializes every build and load of the package's native libraries
 BUILD_LOCK = threading.RLock()
-_LIBRARY = None
+_LIBRARIES: dict = {}
 
 
 def _nvcc() -> str:
@@ -64,10 +84,10 @@ def _nvcc() -> str:
                        "the int8 kernels build from csrc/ on the GPU host")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libintensity_int8-{digest.hexdigest()[:16]}.so"
+def library_path(library: Library = INT8) -> Path:
+    digest = hashlib.sha256(library.source.read_bytes())
+    digest.update(" ".join(library.flags).encode())
+    return BUILD_DIR / f"lib{library.name}-{digest.hexdigest()[:16]}.so"
 
 
 def compile_library(argv: list, source: Path, lib: Path) -> str:
@@ -89,16 +109,17 @@ def compile_library(argv: list, source: Path, lib: Path) -> str:
     return proc.stdout + proc.stderr
 
 
-def build() -> tuple[Path, str]:
+def build(library: Library = INT8) -> tuple[Path, str]:
     """Compile the library unless an up-to-date one exists; returns its path
     and nvcc's output (``-Xptxas -v``: registers, shared memory, spills per
     kernel), kept beside the library for later calls."""
     with BUILD_LOCK:
-        lib = library_path()
+        lib = library_path(library)
         log = lib.with_suffix(".log")
         if lib.exists() and log.exists():
             return lib, log.read_text()
-        log_text = compile_library([_nvcc(), *NVCC_FLAGS], SOURCE, lib)
+        log_text = compile_library([_nvcc(), *library.flags], library.source,
+                                   lib)
         log.write_text(log_text)
         return lib, log_text
 
@@ -110,18 +131,18 @@ def sass(lib: Path) -> str:
                           text=True, check=True).stdout
 
 
-def load_library() -> ctypes.CDLL:
+def load_library(library: Library = INT8) -> ctypes.CDLL:
     """The built library with every C function's argument types declared,
     built and loaded once a process."""
-    global _LIBRARY
-    if _LIBRARY is not None:
-        return _LIBRARY
+    lib = _LIBRARIES.get(library.name)
+    if lib is not None:
+        return lib
     with BUILD_LOCK:
-        if _LIBRARY is None:
-            lib = ctypes.CDLL(str(build()[0]))
-            for name, argtypes in SIGNATURES.items():
+        if library.name not in _LIBRARIES:
+            lib = ctypes.CDLL(str(build(library)[0]))
+            for name, argtypes in library.signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _LIBRARY = lib
-        return _LIBRARY
+            _LIBRARIES[library.name] = lib
+        return _LIBRARIES[library.name]

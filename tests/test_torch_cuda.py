@@ -893,3 +893,90 @@ def test_spans_cast_no_device_shadow(call, monkeypatch):
     print(f"{call}: device busy ns with spans {sorted(on_busy)}, "
           f"without {sorted(off_busy)}")
     assert abs(np.median(on_busy) - np.median(off_busy)) <= spread + 0.01 * np.median(off_busy)
+
+
+def _edge_fields(dev, shape, seed):
+    """Cut lines like the EUV cell's trials: a 36-px grating of random
+    phase with noise, pixels set to the threshold's float32 neighbours, an
+    empty line, a full one and runs at both ends."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t, lines, n = shape
+    x = torch.arange(n, device=dev, dtype=torch.float32)
+    phase = 6.3 * torch.rand((t, lines, 1), generator=gen, device=dev)
+    f = 0.45 + 0.3 * torch.cos(2 * np.pi * x / 36 + phase)
+    f = f + 0.08 * torch.randn(shape, generator=gen, device=dev)
+    thr = 0.45438371501111385
+    near = torch.tensor(np.float32([thr, np.nextafter(np.float32(thr), 1),
+                                    np.nextafter(np.float32(thr), 0)]), device=dev)
+    pick = torch.randint(0, 40, shape, generator=gen, device=dev)
+    f = torch.where(pick < 3, near[pick.clamp_max(2)], f)
+    f[:, 0] = 0.1
+    f[:, 1] = 0.9
+    f[:, 2, :3] = 0.9
+    f[:, 2, -3:] = 0.9
+    return f.contiguous(), thr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,row_step", [((16, 1024, 1024), 2), ((3, 40, 37), 3),
+                                            ((2, 64, 130), 1)])
+def test_edge_runs_kernel_matches_its_plain_twin(shape, row_step):
+    """The ``edge_runs`` kernel's run counts, table counts and edges (the
+    EUV cell's (16, 1024, 1024) at row_step 2; n = 37 and 130 take the
+    4-byte loads) equal the plain twin's bit for bit, twice over."""
+    from lithographysimulator_tpu_torch.ops.kernels import stochastic_edges as se
+
+    dev = _cuda()
+    fields, thr = _edge_fields(dev, shape, 11)
+    before = se.LAUNCHES["edge_runs"]
+    plain_runs, plain_counts = se.edge_runs_plain(fields, thr, row_step)
+    k = int(plain_counts.max())
+    plain = se.edge_runs_plain(fields, thr, row_step, k)
+    valid = torch.arange(k, device=dev) < plain_counts[..., None]
+    for _ in range(2):
+        runs, counts = se.edge_runs(fields, thr, row_step)
+        rise, fall = se.edge_runs(fields, thr, row_step, k)
+        torch.cuda.synchronize()
+        assert torch.equal(runs, plain_runs) and torch.equal(counts, plain_counts)
+        for got, want in zip((rise, fall), plain):
+            assert torch.equal(got[valid].view(torch.int64), want[valid].view(torch.int64))
+            assert torch.isnan(got[~valid]).all()
+    # into the trial rows of a wider batch's tables (out=), as the ensemble
+    t = fields.shape[0]
+    big = [torch.full((t + 2, *rise.shape[1:]), 7.0, dtype=torch.float64,
+                      device=dev) for _ in range(2)]
+    se.edge_runs(fields, thr, row_step, k, out=(big[0][1:t + 1], big[1][1:t + 1]))
+    for whole, want in zip(big, (rise, fall)):
+        assert torch.equal(whole[1:t + 1].view(torch.int64), want.view(torch.int64))
+        assert (whole[0] == 7.0).all() and (whole[t + 1] == 7.0).all()
+    assert se.LAUNCHES["edge_runs"] - before == 5
+    assert int(plain_counts.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_edge_statistics_on_the_card_are_the_cpus():
+    """The statistics of the card's tables equal the same functions on the
+    CPU: per-trial LER, LWR and CD and the traces bit for bit (fixed-order
+    IEEE sums), the PSD within 1e-12 (cuFFT and the CPU's FFT)."""
+    from lithographysimulator_tpu_torch.models import edge_stats as es
+    from lithographysimulator_tpu_torch.ops.kernels import stochastic_edges as se
+
+    dev = _cuda()
+    fields, thr = _edge_fields(dev, (16, 1024, 1024), 12)
+    anchors = torch.arange(18.0, 1024.0, 36.0, dtype=torch.float64)
+    out = {}
+    for where, f in (("cuda", fields), ("cpu", fields.cpu())):
+        _, counts = se.edge_runs(f, thr, 2)
+        rise, fall = se.edge_runs(f, thr, 2, int(counts.max()))
+        a = anchors.to(f.device)
+        out[where] = (es.trial_stats(rise, fall, counts, a, 1.0, 64),
+                      *es.band_traces(rise[:, 100:400], fall[:, 100:400],
+                                      counts[:, 100:400], a, 1.0),
+                      *es.psd_partial(rise[:, 100:400], fall[:, 100:400],
+                                      counts[:, 100:400], a, 1.0, 2.0))
+    (s_c, x_c, ok_c, p_c, e_c), (s_h, x_h, ok_h, p_h, e_h) = (
+        [t.cpu() for t in out[w]] for w in ("cuda", "cpu"))
+    assert torch.equal(s_c.view(torch.int64), s_h.view(torch.int64))
+    assert torch.equal(ok_c, ok_h) and torch.equal(e_c, e_h) and int(e_c.sum()) > 0
+    assert torch.equal(x_c[ok_c], x_h[ok_h])
+    torch.testing.assert_close(p_c, p_h, rtol=1e-12, atol=0)

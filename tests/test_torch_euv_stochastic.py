@@ -28,6 +28,7 @@ from litho_bench.reference import optics as ro
 from litho_bench.reference import stochastic as rst
 from litho_bench.reference import vector as rv
 from lithographysimulator_tpu_torch.models import stochastic as ps
+from lithographysimulator_tpu_torch.models.resist import feature_table
 from lithographysimulator_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -232,32 +233,41 @@ def test_volume_and_psd_spans(fn):
 @pytest.mark.parametrize("host_trials", [None, 2])
 def test_counters_count_the_trials_and_the_bytes_read_back(monkeypatch,
                                                             host_trials):
-    """``stochastic.trials`` and ``stochastic.readback_bytes``: the trials
-    run, and the deterministic field plus every host chunk's cut lines, run
-    counts and band, traced or not; the trace's tally holds the same."""
-    n, trials, row_step = 64, 5, 2
+    """``stochastic.trials``, ``stochastic.readback_bytes`` and
+    ``stochastic.edge_runs``: the trials run; the deterministic field, and
+    a host chunk's largest run count a trial chunk (4 bytes), band, three
+    float64 statistics a trial and three int64 tallies; and the runs the
+    edge tables hold, traced or not. The trace's tally holds the same."""
+    n, trials, row_step, trial_chunk = 64, 5, 2, 2
     if host_trials is not None:
-        rows_bytes = (n // row_step) * n * 4 + n * 4
-        monkeypatch.setattr(ps, "_SUMMARY_BYTES", host_trials * rows_bytes)
+        monkeypatch.setattr(ps, "_SUMMARY_BYTES", host_trials
+                            * ps._trial_bytes(n, row_step, edges=True))
+        assert ps._host_chunk(n, row_step, trials, edges=True) == host_trials
     chunks = [min(host_trials or trials, trials - s)
               for s in range(0, trials, host_trials or trials)]
-    expected = 4 * n * n + sum(m * (n // row_step) * n * 4 + m * n * 4 + 4 * n * n
+    expected = 4 * n * n + sum(4 * -(-m // trial_chunk) + 4 * n * n + 24 * m + 24
                                for m in chunks)
     cfg = _cfg(n)
     img = _line_image(n)
+    kw = dict(trials=trials, seed=3, row_step=row_step, trial_chunk=trial_chunk)
+    model = drv.resist(cfg)
+    lines = ps.exposure_summary(img, drv.optics(cfg), model, **kw)[0].numpy()
+    runs = sum(len(feature_table(line, drv.optics(cfg), threshold=model.threshold)["row"])
+               for line in lines)
+    assert runs > 0
     before = ps.stochastic_counts()
-    pt.stochastic_ensemble(img, drv.optics(cfg), drv.resist(cfg), trials=trials,
-                           seed=3, row_step=row_step)
+    pt.stochastic_ensemble(img, drv.optics(cfg), model, **kw)
     mid = ps.stochastic_counts()
     assert mid["trials"] - before["trials"] == trials
     assert mid["readback_bytes"] - before["readback_bytes"] == expected
-    _, rec = _traced(lambda: pt.stochastic_ensemble(
-        img, drv.optics(cfg), drv.resist(cfg), trials=trials, seed=3,
-        row_step=row_step))
+    assert mid["edge_runs"] - before["edge_runs"] == runs
+    _, rec = _traced(lambda: pt.stochastic_ensemble(img, drv.optics(cfg), model,
+                                                    **kw))
     after = ps.stochastic_counts()
     assert after["trials"] - mid["trials"] == trials
     assert rec["counters"] == {"stochastic.trials": trials,
-                               "stochastic.readback_bytes": expected}
+                               "stochastic.readback_bytes": expected,
+                               "stochastic.edge_runs": runs}
 
 
 def test_spans_leave_the_ensemble_bit_for_bit():

@@ -26,23 +26,39 @@ def _chip_smoke():
     return module
 
 
-def _c_functions() -> dict:
+def _c_functions(source: Path) -> dict:
     """{name: [parameter declarations]} of the extern "C" block."""
-    src = build.SOURCE.read_text()
+    src = source.read_text()
     block = src[src.index('extern "C" {'):]
     return {m.group(1): [p.strip() for p in m.group(2).split(",")]
             for m in re.finditer(r"^int (\w+)\(([^)]*)\)", block, re.M)}
 
 
-def test_ctypes_signatures_match_c_interface():
-    funcs = _c_functions()
-    assert set(funcs) == set(build.SIGNATURES)
+@pytest.mark.parametrize("library", [build.INT8, build.EDGES], ids=lambda lib: lib.name)
+def test_ctypes_signatures_match_c_interface(library):
+    funcs = _c_functions(library.source)
+    assert set(funcs) == set(library.signatures)
     for name, params in funcs.items():
-        types = build.SIGNATURES[name]
+        types = library.signatures[name]
         assert len(types) == len(params), name
         for decl, t in zip(params, types):
             assert (t is ctypes.c_void_p) == ("*" in decl), (name, decl)
             assert (t is ctypes.c_int) == decl.startswith("int "), (name, decl)
+            assert (t is ctypes.c_double) == decl.startswith("double "), (name, decl)
+
+
+def test_the_int8_library_keeps_its_name_and_the_edges_their_own():
+    """The int8 library's file name hashes its source and flags alone, as
+    before the edge library existed; the edge library builds apart, with
+    --fmad=false."""
+    import hashlib
+
+    digest = hashlib.sha256(build.SOURCE.read_bytes())
+    digest.update(" ".join(build.NVCC_FLAGS).encode())
+    assert build.library_path().name == f"libintensity_int8-{digest.hexdigest()[:16]}.so"
+    assert build.library_path(build.EDGES).name.startswith("libstochastic_edges-")
+    assert "--fmad=false" in build.EDGES.flags
+    assert "--fmad=false" not in build.NVCC_FLAGS
 
 
 def test_build_keeps_its_log(tmp_path, monkeypatch):
@@ -62,6 +78,9 @@ def test_build_keeps_its_log(tmp_path, monkeypatch):
     assert lib.is_file() and lib.parent == tmp_path and "Used 9 registers" in log
     assert build.build() == (lib, log)
     assert len(calls) == 1
+    edges, _ = build.build(build.EDGES)
+    assert edges != lib and edges.parent == tmp_path and len(calls) == 2
+    assert "--fmad=false" in calls[1] and str(build.EDGES.source) in calls[1]
 
 
 def test_ptxas_spills_and_sass_counts():
